@@ -21,6 +21,8 @@ import dataclasses
 #: with the value that leaves each one off. Asking for another value raises.
 NOT_YET_PORTED = {
     "resume": (None, "params-only checkpoint restore (the checkpoint port)"),
+    "checkpoint_dir": (None, "run records under the checkpoint directory "
+                             "(run id, flight recorder)"),
     "metrics_port": (None, "the Prometheus metrics endpoint"),
     "serve_prefix_cache": (False, "prefix caching"),
     "serve_prefill_chunk": (0, "chunked prefill"),
@@ -45,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["fp32", "bf16", "pure_bf16", "fp16"])
     p.add_argument("--seq-len", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="run records directory (not yet ported)")
     p.add_argument("--resume", default=None, nargs="?", const="auto",
                    help="checkpoint dir or 'auto' (not yet ported)")
     p.add_argument("--metrics-port", type=int, default=None,

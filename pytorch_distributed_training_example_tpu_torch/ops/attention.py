@@ -35,17 +35,15 @@ def _repeat_kv(k: torch.Tensor, num_q_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(k, num_q_heads // num_kv, dim=2)
 
 
-def _causal_masked(logits: torch.Tensor, q_offset: int = 0) -> torch.Tensor:
+def _causal_masked(logits: torch.Tensor) -> torch.Tensor:
     sq, sk = logits.shape[-2], logits.shape[-1]
-    q_pos = torch.arange(sq, device=logits.device)[:, None] + q_offset
+    q_pos = torch.arange(sq, device=logits.device)[:, None]
     k_pos = torch.arange(sk, device=logits.device)[None, :]
     return logits.masked_fill(q_pos < k_pos, NEG_INF)
 
 
 def attention_logits(q: torch.Tensor, k: torch.Tensor, *,
-                     causal: bool = False,
-                     bias: torch.Tensor | None = None,
-                     q_offset: int = 0) -> torch.Tensor:
+                     causal: bool = False) -> torch.Tensor:
     """Scaled, masked fp32 scores [B, H, Sq, Skv] of the oracle.
 
     Operands are upcast to fp32 before the product, which is what the JAX
@@ -54,10 +52,8 @@ def attention_logits(q: torch.Tensor, k: torch.Tensor, *,
     k = _repeat_kv(k, q.shape[2])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     logits = logits * (1.0 / math.sqrt(q.shape[-1]))
-    if bias is not None:
-        logits = logits + bias.float()
     if causal:
-        logits = _causal_masked(logits, q_offset)
+        logits = _causal_masked(logits)
     return logits
 
 
@@ -72,13 +68,10 @@ def attention_output(logits: torch.Tensor, v: torch.Tensor,
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = False,
-                          bias: torch.Tensor | None = None,
-                          q_offset: int = 0) -> torch.Tensor:
+                          *, causal: bool = False) -> torch.Tensor:
     """Reference attention; fp32 scores and softmax, inputs' dtype out."""
-    logits = attention_logits(q, k, causal=causal, bias=bias,
-                              q_offset=q_offset)
-    return attention_output(logits, v, q.dtype)
+    return attention_output(attention_logits(q, k, causal=causal), v,
+                            q.dtype)
 
 
 def attention(q, k, v, *, causal: bool = False, impl: str = "auto"):

@@ -31,6 +31,8 @@ import torch
 from pytorch_distributed_training_example_tpu_torch.ops import _build
 from pytorch_distributed_training_example_tpu_torch.ops.attention import (
     NEG_INF, attention_logits, attention_output)
+from pytorch_distributed_training_example_tpu_torch.serve.kv_cache import (
+    gather_pages)
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128, 256)
@@ -146,13 +148,6 @@ def flash_attention(q, k, v, causal: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def _gather_kv(pages, page_table):
-    B, max_pages = page_table.shape
-    _, page_size, Hkv, D = pages.shape
-    flat = page_table.reshape(-1).long()
-    return pages[flat].reshape(B, max_pages * page_size, Hkv, D)
-
-
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table,
                                  positions):
     """Gather-based plain version, after the JAX ``_paged_decode_xla``:
@@ -217,26 +212,19 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, positions,
                 already be appended)
 
     ``impl``: "auto" launches ``csrc/paged_decode.cu`` for CUDA tensors and
-    takes the plain version for CPU tensors; "kernel" demands the kernel
-    (the JAX package's "pallas"); "xla" is the gather-based plain version
-    on any device (the JAX package's "xla").
+    takes the plain version for CPU tensors; "xla" is the gather-based plain
+    version on any device (the JAX package's "xla").
     """
     B, H, D = q.shape
     num_kv_heads = k_pages.shape[2]
     if H % num_kv_heads:
         raise ValueError(f"H={H} not a multiple of Hkv={num_kv_heads}")
-    if impl not in ("auto", "kernel", "xla"):
+    if impl not in ("auto", "xla"):
         raise ValueError(f"unknown paged decode impl {impl!r}")
     page_table = page_table.to(torch.int32)
     positions = positions.to(torch.int32)
-    if impl == "xla":
-        return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
-                                            positions)
-    if q.is_cuda:
+    if impl == "auto" and q.is_cuda:
         return _paged_decode_cuda(q, k_pages, v_pages, page_table, positions)
-    if impl == "kernel":
-        raise ValueError("paged decode impl='kernel' needs CUDA tensors, got "
-                         f"{q.device}")
     return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
                                         positions)
 
@@ -261,8 +249,8 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, positions):
     num_kv_heads = k_pages.shape[2]
     if H % num_kv_heads:
         raise ValueError(f"H={H} not a multiple of Hkv={num_kv_heads}")
-    k = _gather_kv(k_pages, page_table)
-    v = _gather_kv(v_pages, page_table)
+    k = gather_pages(k_pages, page_table)
+    v = gather_pages(v_pages, page_table)
     T = k.shape[1]
     G = H // num_kv_heads
     qg = q.reshape(B, S, num_kv_heads, G, D)

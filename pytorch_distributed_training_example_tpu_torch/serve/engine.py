@@ -33,7 +33,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Callable
 
 import numpy as np
 import torch
@@ -65,9 +64,6 @@ class Request:
         if self.submit_t is None or self.first_token_t is None:
             return None
         return self.first_token_t - self.submit_t
-
-    def inter_token_s(self) -> list[float]:
-        return [b - a for a, b in zip(self.token_times, self.token_times[1:])]
 
     def finished(self, max_len: int) -> bool:
         if self.eos_id is not None and self.generated \
@@ -105,8 +101,7 @@ class ContinuousBatchingEngine:
                  decode_buckets: tuple[int, ...] = (1, 2, 4, 8),
                  prompt_buckets: tuple[int, ...] = (16, 32, 64),
                  max_model_len: int | None = None,
-                 attn_impl: str = "auto",
-                 clock: Callable[[], float] = time.perf_counter):
+                 attn_impl: str = "auto"):
         self.module = module
         self.spec = spec
         self.device = module.embed.weight.device
@@ -120,7 +115,6 @@ class ContinuousBatchingEngine:
                 f"largest prompt bucket {self.prompt_buckets[-1]} exceeds "
                 f"max_model_len {self.max_model_len}")
         self.attn_impl = attn_impl
-        self._clock = clock
         self.table_width = pages_for_tokens(self.max_model_len,
                                             spec.page_size)
         self.pool = PagePool(spec.num_pages)
@@ -198,7 +192,7 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prompt of {len(req.prompt)} tokens exceeds largest "
                 f"prompt bucket {self.prompt_buckets[-1]}")
-        req.submit_t = self._clock()
+        req.submit_t = time.perf_counter()
         self.waiting.append(req)
 
     def _free_slot(self) -> int | None:
@@ -227,7 +221,7 @@ class ContinuousBatchingEngine:
             self._tables[slot] = 0
             self._tables[slot, :len(pages)] = pages
             self._lens[slot] = plen
-            req.admit_t = self._clock()
+            req.admit_t = time.perf_counter()
             self.stats["admitted"] += 1
             self.stats["prompt_tokens"] += plen
             self._prefill(slot, req)
@@ -256,7 +250,7 @@ class ContinuousBatchingEngine:
         out = tok.cpu().numpy()    # the prefill's one host fetch
         first = int(out[0, 0])
         self.stats["nonfinite_logits"] += int(not out[0, 1])
-        now = self._clock()
+        now = time.perf_counter()
         req.generated.append(first)
         req.first_token_t = now
         req.token_times.append(now)
@@ -365,7 +359,7 @@ class ContinuousBatchingEngine:
         tok = self._forward("decode", tokens, positions, table,
                             np.zeros(bucket, np.int32))
         out = tok.cpu().numpy()    # the step's ONE host fetch
-        now = self._clock()
+        now = time.perf_counter()
         self.stats["decode_steps"] += 1
         produced = 0
         for j, i in enumerate(rows):

@@ -10,9 +10,9 @@ generator keeps "sending" on schedule even while the engine is saturated,
 which is what makes saturation-mode p99s honest (a closed loop would
 self-throttle and hide the queueing delay).
 
-Everything is seeded through one ``np.random.default_rng(seed)`` (this
-module sits under the GL005 lint scope): same seed, same request stream,
-same page-table evolution — serve runs diff bit-for-bit.
+Everything is seeded through one ``np.random.default_rng(seed)``: same
+seed, same request stream, same page-table evolution — serve runs diff
+bit-for-bit.
 """
 
 from __future__ import annotations

@@ -59,8 +59,9 @@ def test_training_forward_matches_jax(pair):
 
 def test_prefill_and_decode_through_paged_cache_match_jax(pair):
     """Two prompts prefilled into scattered pages, then batched decode
-    steps (with a filler row on the scratch page) that cross page edges:
-    every step's next-token logits against the JAX decode_ctx path."""
+    steps (with a filler row on the scratch page) that cross page edges,
+    then a prefill window with history on a fresh page: every step's
+    next-token logits against the JAX decode_ctx path."""
     module, params, model = pair
     P, ps, W = 16, 4, 8
     jspec = jax_kv.CacheSpec(num_layers=2, num_pages=P, page_size=ps,
@@ -76,24 +77,26 @@ def test_prefill_and_decode_through_paged_cache_match_jax(pair):
     tables[0, :4] = [9, 3, 12, 5]
     tables[1, :3] = [7, 14, 2]
 
-    @jax.jit
-    def jax_step(cache, tokens, positions, table, last):
+    @functools.partial(jax.jit, static_argnames="history")
+    def jax_step(cache, tokens, positions, table, last, history):
         logits, vs = module.apply(
             {"params": params, "cache": cache}, tokens, train=False,
             decode_ctx=dict(positions=positions, page_table=table,
                             cache_spec=(P, ps), last_index=last,
-                            history=False, attn_impl="xla"),
+                            history=history, attn_impl="xla"),
             mutable=["cache"])
         return logits, vs["cache"]
 
-    def run(tokens, positions, table, last):
+    def run(tokens, positions, table, last, history=False):
         nonlocal jcache
-        ref, jcache = jax_step(jcache, tokens, positions, table, last)
+        ref, jcache = jax_step(jcache, tokens, positions, table, last,
+                               history)
         with torch.no_grad():
             got = model(torch.from_numpy(tokens), decode_ctx=dict(
                 positions=torch.from_numpy(positions),
                 page_table=torch.from_numpy(table),
-                last_index=torch.from_numpy(last), cache=cache))
+                last_index=torch.from_numpy(last), cache=cache,
+                history=history))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
         return got.argmax(-1).numpy()
 
@@ -112,6 +115,12 @@ def test_prefill_and_decode_through_paged_cache_match_jax(pair):
         out = run(tokens, positions, table, np.zeros(3, np.int32))
         next_tok = [int(out[0]), int(out[1])]
         lens = [lens[0] + 1, lens[1] + 1]
+    # Three more tokens of request 1 in one window on a fresh page: they
+    # attend to the 12 cached tokens before them through the page table.
+    tables[1, lens[1] // ps] = 11
+    window = np.asarray([[next_tok[1], 17, 29]], np.int32)
+    run(window, lens[1] + np.arange(3, dtype=np.int32)[None], tables[1:2],
+        np.asarray([2], np.int32), history=True)
 
 
 def test_bridge_raises_on_missing_or_extra_leaf(pair):

@@ -174,6 +174,7 @@ def test_cli_refuses_cpu_unless_asked(monkeypatch):
 
 @pytest.mark.parametrize("argv,what", [
     (["--resume"], "checkpoint restore"),
+    (["--checkpoint-dir", "runs"], "run records"),
     (["--serve-prefix-cache"], "prefix caching"),
     (["--serve-spec-decode", "ngram"], "speculative decoding"),
 ])
