@@ -206,7 +206,7 @@ PRESETS: dict[str, dict[str, Any]] = {
         epochs=30, global_batch_size=256, lr=0.1, warmup_epochs=2.0,
         weight_decay=5e-4, precision="fp32", strategy="dp",
     ),
-    # configs[1]: ResNet-50 / ImageNet-1k — data-parallel (the driver metric)
+    # configs[1]: ResNet-50 / ImageNet-1k — data-parallel (the headline metric)
     "resnet50_imagenet": dict(
         model="resnet50", dataset="imagenet", num_classes=1000, image_size=224,
         epochs=90, global_batch_size=1024, lr=0.4, warmup_epochs=5.0,
