@@ -337,9 +337,14 @@ def flash_bwd_case(flash, name, B, S, H, Hkv, D, causal, kv_len, dtype,
     o = o.contiguous()
     kw = dict(causal=causal, kv_len=kv_len)
     got = flash.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     ref = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     dt = str(dtype)[6:]
+    # No atomics: a second call gives the same bits.
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_bwd {name} {dt}: a second call gave "
+                             "other gradients")
     err = max(max_err(a, b) for a, b in zip(got, ref))
     worst, rel_l2 = grad_errors(got, ref, dt)
     if not (worst <= 1 and rel_l2 <= BWD_TOL[dt][2]):
@@ -368,6 +373,7 @@ def flash_bwd_case(flash, name, B, S, H, Hkv, D, causal, kv_len, dtype,
     row = dict(name=f"flash_bwd {name} {dt}", shape=dict(
         B=B, S=S, H=H, Hkv=Hkv, D=D, causal=causal, kv_len=kv_len),
         max_abs_err=err, err_over_bound=worst, rel_l2_err=rel_l2,
+        reproducible=True,
         tol=dict(zip(("rtol", "c_rms", "rel_l2"), BWD_TOL[dt])),
         ms=time_ms(lambda: flash.flash_attention_bwd(q, k, v, o, lse, do,
                                                      **kw)),
@@ -375,7 +381,37 @@ def flash_bwd_case(flash, name, B, S, H, Hkv, D, causal, kv_len, dtype,
             q, k, v, o, lse, do, **kw), iters=5),
         library_ms=time_ms(lib_fwd_bwd) - time_ms(lib_fwd))
     row["bound_ms"], row["bound_by"] = bound(nbytes, ops, dt)
+    # The two-pass kernel recomputes s and dp in its second pass: 7
+    # products, its own floor.
+    row["floor_7_products_ms"] = bound(nbytes, ops * 7 / 5, dt)[0]
+    # One call's split over its kernels (delta pre-pass, dq, dk/dv).
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        flash.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+    split: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "flash_bwd_" in e.name:
+            key = e.name.split("flash_bwd_")[-1].split("(")[0]
+            split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    row["kernels_ms"] = split
     return row
+
+
+def wgmma_spills(log: str) -> dict:
+    """Spill bytes (stores + loads) of each wgmma kernel in a ``-Xptxas -v``
+    log, by mangled name."""
+    spills, name = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[-1].strip()
+        elif name and "spill stores" in ln:
+            if "wgmma" in name:
+                nums = [int(w) for w in ln.replace(",", " ").split()
+                        if w.isdigit()]
+                spills[name] = nums[1] + nums[2]
+            name = None
+    return spills
 
 
 def elementwise_errors(got, ref, tol) -> tuple[float, float]:
@@ -671,6 +707,9 @@ def device_profile(prof, wall_s: float, top: int = 8) -> dict:
     rows = sorted(by_name.items(), key=lambda r: -r[1])
     return {"wall_ms": 1e3 * wall_s, "device_ms": device_ms,
             "busy_share": device_ms / (1e3 * wall_s),
+            # K2's three kernels (delta pre-pass, dq, dk/dv) together
+            "flash_bwd_ms": sum(ms for k, ms in by_name.items()
+                                if "flash_bwd_" in k),
             "top": [{"kernel": k[:80], "ms": ms, "share": ms / device_ms}
                     for k, ms in rows[:top]]}
 
@@ -800,10 +839,18 @@ def main() -> int:
         if proc.returncode != 0:
             raise AssertionError(f"nvcc failed on a planted fault:\n"
                                  f"{fault_log}")
+    # The bf16 backward's wgmma kernels must not spill (a library built
+    # earlier, by the kernel tests, reports no log: not checked then).
+    spills = wgmma_spills(built["logs"]["flash_bwd"])
+    if built["logs"]["flash_bwd"] and (len(spills) != 4
+                                       or any(spills.values())):
+        raise AssertionError(f"flash_bwd's wgmma kernels spill: {spills}")
     emit("build", seconds=built["seconds"],
          ptxas={name: [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln]
-                for name, log in built["logs"].items()})
+                       if "registers" in ln or "spill" in ln
+                       or "Performance Loss" in ln]
+                for name, log in built["logs"].items()},
+         flash_bwd_wgmma_spill_bytes=spills or None)
 
     # 3. Each kernel against its plain version at the serving shapes.
     gen = torch.Generator(device="cuda")
@@ -1505,7 +1552,10 @@ def main() -> int:
          images_per_s=images / step_s,
          mfu=3 * flops_image * images / step_s / PEAK_OPS["bfloat16"],
          mfu_basis=f"3 x {flops_image:.6g} flops per image over 989 TF/s "
-                   "bf16",
+                   "bf16 (the JAX package's table, which counts "
+                   "multiply-adds)",
+         mfu_two_flop=2 * 3 * flops_image * images / step_s
+         / PEAK_OPS["bfloat16"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          losses=summary["losses"], grad_norms=summary["grad_norms"],
          acc_top1=summary["acc_top1"], acc_top5=summary["acc_top5"])
@@ -1687,6 +1737,7 @@ def main() -> int:
         "flash_fwd": dict(route="cuda", source=f"{PKG}/csrc/flash_fwd.cu",
                           replaces=f"{flash_py}:93"),
         "flash_bwd": dict(route="cuda", source=f"{PKG}/csrc/flash_bwd.cu",
+                          design="wgmma + TMA ring",
                           replaces=f"{flash_py}:643", also_replaces=[
                               f"{flash_py}:200", f"{flash_py}:241",
                               f"{flash_py}:601", f"{flash_py}:809"]),

@@ -199,7 +199,8 @@ flash_attention_fwd_kv_len.launches = 0
 
 def _delta(o, do):
     """delta = rowsum(do * o) in fp32, [B, H, Sq]: the XLA einsum the JAX
-    package runs outside its backward kernels."""
+    package runs outside its backward kernels (on CUDA tensors the
+    kernel's pre-pass computes it)."""
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -236,7 +237,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
 @functools.cache
 def _flash_bwd_fn():
     fn = _build.library("flash_bwd").pdtx_flash_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -256,8 +257,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, kv_len):
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash backward kernel: lse must be float32 "
                          f"{(B, H, Sq)}, got {lse.dtype} {tuple(lse.shape)}")
-    if kv_len is not None and not 0 <= kv_len <= Skv:
-        raise ValueError(f"kv_len={kv_len} outside [0, {Skv}]")
+    if kv_len is not None and not 1 <= kv_len <= Skv:
+        raise ValueError(f"kv_len={kv_len} outside [1, {Skv}]")
     dtypes = (q.dtype, k.dtype, v.dtype)
     q, k, v, do = _kernel_operands(q, k, v, do)
     _check_cuda_args("flash_attention_bwd", dict(q=q, k=k, v=v, do=do),
@@ -266,14 +267,18 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, kv_len):
     if o.device != q.device:
         raise ValueError(f"flash_attention_bwd: o is on {o.device}, q on "
                          f"{q.device}")
-    delta = _delta(o, do)  # a torch op: o may have any strides
+    # The kernel's pre-pass reads o in the operands' dtype and layout (a
+    # copy only where o arrives in another dtype or with other strides) and
+    # writes delta = rowsum(do * o) into this scratch.
+    o = o.to(q.dtype).contiguous()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(q.device):
         err = _flash_bwd_fn()(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
-            _ptr(dq), _ptr(dk), _ptr(dv), B, Sq, Skv, H, Hkv, D, int(causal),
-            Skv if kv_len is None else kv_len, 1.0 / math.sqrt(D),
-            _KERNEL_DTYPES[q.dtype], _stream(q.device))
+            _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
+            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), B, Sq, Skv, H, Hkv, D,
+            int(causal), Skv if kv_len is None else kv_len,
+            1.0 / math.sqrt(D), _KERNEL_DTYPES[q.dtype], _stream(q.device))
     _build.check(err, "flash_bwd")
     flash_attention_bwd.launches += 1
     return tuple(t.to(dt) for t, dt in zip((dq, dk, dv), dtypes))
@@ -284,8 +289,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     """Flash attention backward: (dq, dk, dv) from the residuals of
     :func:`flash_attention_fwd` (q, k, v with un-expanded GQA heads, o, lse
     [B, H, Sq]) and the output grad ``do``. CUDA tensors go through
-    ``csrc/flash_bwd.cu`` (one launch of its dq and dk/dv kernels); CPU
-    tensors through the plain version."""
+    ``csrc/flash_bwd.cu`` (one launch of its delta pre-pass, dq and dk/dv
+    kernels); CPU tensors through the plain version."""
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"H={q.shape[2]} not a multiple of Hkv={k.shape[2]}")
     if q.is_cuda:

@@ -314,7 +314,8 @@ def _assert_grads_close(got, ref, tol):
                                            (False, 150)])
 @pytest.mark.parametrize("B,S,H,Hkv,D", [(1, 256, 8, 2, 128),
                                          (2, 200, 4, 4, 64),
-                                         (1, 192, 2, 1, 256)])
+                                         (1, 192, 2, 1, 256),
+                                         (1, 2048, 16, 4, 64)])
 def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, causal, kv_len,
                                         B, S, H, Hkv, D):
     q, k, v = (t.to(cuda_device, dtype) for t in _qkv(B, S, S, H, Hkv, D))
@@ -330,17 +331,24 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, causal, kv_len,
     _assert_grads_close(got, ref, GRAD_TOL[dtype])
 
 
-#: Planted faults in the bf16 backward kernels, each one tile's share of
-#: the sums dropped where gradients are small: key tile 0 from the dq of the
-#: last quarter of the rows, the last q tile from the dk/dv of the last
-#: quarter of the keys.
+#: Planted faults in the bf16 wgmma passes' consumer loops, each one
+#: tile's share of the sums dropped where gradients are small (the tile is
+#: still waited for and its stage freed, so the ring stays in step): key
+#: tile 0 from the dq of the last quarter of the rows, the last q tile from
+#: the dk/dv of the last quarter of the keys.
 _DROPPED_TILES = {
-    "dq": ("  for (int t = 0; t < n_tiles; ++t) {\n    const int k0 = t * kKeys;",
-           "  for (int t = q0 >= a.Sq * 3 / 4; t < n_tiles; ++t) {\n"
-           "    const int k0 = t * kKeys;"),
-    "dkv": ("    for (int t = t0; t < n_tiles; ++t) {\n      const int qs0 = t * kQ;",
-            "    for (int t = t0; t < n_tiles - (k0 >= a.Skv * 3 / 4); ++t) {\n"
-            "      const int qs0 = t * kQ;"),
+    "dq": ("  for (int t = 0; t < n_tiles; ++t) {\n"
+           "    const int k0 = t * kKv;\n"
+           "    const bool skip = qw0 >= a.Sq || (a.causal && k0 > qw0 + 63);",
+           "  for (int t = 0; t < n_tiles; ++t) {\n"
+           "    const int k0 = t * kKv;\n"
+           "    const bool skip = qw0 >= a.Sq || (a.causal && k0 > qw0 + 63) ||\n"
+           "                      (t == 0 && q0 >= a.Sq * 3 / 4);"),
+    "dkv": ("    const int qs0 = t * kQ;\n"
+            "    const bool skip = !live || (a.causal && qs0 + kQ <= kw0);",
+            "    const int qs0 = t * kQ;\n"
+            "    const bool skip = !live || (a.causal && qs0 + kQ <= kw0) ||\n"
+            "                      (t == t0 + n_t - 1 && k0 >= a.Skv * 3 / 4);"),
 }
 
 
@@ -386,6 +394,21 @@ def test_flash_bwd_check_catches_dropped_tiles(cuda_device, tmp_path,
             assert not _grads_close(got, ref, tol), name
     finally:
         flash._flash_bwd_fn.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv", [(2, 1024, 12, 12), (1, 2048, 16, 4)])
+def test_flash_bwd_is_bitwise_reproducible(cuda_device, B, S, H, Hkv):
+    """No atomics: two calls give identical bf16 dq, dk, dv, at the gpt2
+    shape (batch cut to 2) and at llama_moe's GQA 16/4 heads."""
+    dtype = torch.bfloat16
+    q, k, v = (t.to(cuda_device, dtype) for t in _qkv(B, S, S, H, Hkv, 64))
+    do = _qkv(B, S, S, H, Hkv, 64, seed=1)[0].to(cuda_device, dtype)
+    o, lse = flash.flash_attention_fwd_plain(q, k, v, causal=True)
+    first = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    second = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
