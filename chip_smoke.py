@@ -104,6 +104,14 @@ VIT_ARGV = ["--config", "vit_b16_imagenet", "--attn-impl", "flash",
 IGNORED_KV_LEN = (
     "  if (kv_len < 1 || kv_len > Skv) return (int)cudaErrorInvalidValue;\n",
     "  kv_len = Skv;  // planted fault: kv_len ignored\n")
+# The planted fault of the causal forward check: the wgmma kernel leaves the
+# tiles that cross the diagonal unmasked.
+UNMASKED_DIAGONAL = (
+    "  const bool edge = (causal && k0 + kBN - 1 > qw0) || k0 + kBN > kvl;\n",
+    "  const bool edge = k0 + kBN > kvl;  // planted fault: diagonal open\n")
+# The XU pipe (ex2, the bf16 packs) of an H100 SM issues 16 operations a
+# clock; the forward spends one ex2 and half a pack on each visible pair.
+XU_OPS_PER_SM_CLOCK, XU_OPS_PER_PAIR = 16, 1.5
 # The fused BN-stats matmul: y in GMM_TOL's form; each column's mean and
 # biased variance within BN_STATS_TOL of its root mean square and mean
 # square (fp32 sums of the same products in another order: ~1e-6 expected).
@@ -217,34 +225,73 @@ def paged_decode_case(flash, B, positions, dtype, gen):
     return row
 
 
-def flash_case(flash, S, dtype, gen):
-    """Causal prefill attention at llama3_8b's shapes, [B, S, H, D]."""
-    B, H, Hkv, D = 1, 32, 8, 128
+def planted(name, lib_path):
+    """A block in which ``csrc/<name>.cu``'s library is the planted-fault
+    build at ``lib_path``."""
+    from pytorch_distributed_training_example_tpu_torch.ops import _build
+
+    return _build.using(name, ctypes.CDLL(lib_path))
+
+
+def flash_case(flash, name, B, S, H, Hkv, D, dtype, gen, sm_clock_hz,
+               fault_lib=None):
+    """The causal forward (K1f) against its plain version at one shape,
+    [B, S, H, D]: llama3_8b's prefill, the training microbatches of gpt2
+    and llama_moe, and head_dim 256. Two calls must give the same bits; with
+    ``fault_lib``, the same check must fail a build that leaves the
+    diagonal tiles unmasked."""
     q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dtype)
-    out, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+    dt = str(dtype)[6:]
+    name = f"flash_fwd {name} {dt}"
     ref, ref_lse = flash.flash_attention_fwd_plain(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    name = f"flash_fwd S={S} {str(dtype)[6:]}"
-    err = max_err(out, ref)
-    check(name, err, TOL[str(dtype)[6:]])
-    lse_err = max_err(lse, ref_lse)
+
+    def errors():
+        out, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        return max_err(out, ref), max_err(lse, ref_lse), out, lse
+
+    err, lse_err, out, lse = errors()
+    check(name, err, TOL[dt])
     check(name + " lse", lse_err, LSE_TOL)
+    again = flash.flash_attention_fwd(q, k, v, causal=True)
+    if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+        raise AssertionError(f"{name}: a second call gave other bits")
+    fault = None
+    if fault_lib is not None:
+        with planted("flash_fwd", fault_lib):
+            f_err, f_lse = errors()[:2]
+        if f_err <= TOL[dt] and f_lse <= LSE_TOL:
+            raise AssertionError(f"the causal check passed the planted "
+                                 f"fault: {f_err}, {f_lse}")
+        fault = dict(fault="diagonal tiles unmasked", max_abs_err=f_err,
+                     lse_max_abs_err=f_lse, tol=TOL[dt])
+    del out, lse, again
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     item = q.element_size()
     nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * item + 4 * B * H * S
     ops = 2 * B * H * S * S * D
-    row = dict(name=name, max_abs_err=err, lse_max_abs_err=lse_err,
-               tol=TOL[str(dtype)[6:]],
+    pairs = B * H * S * (S + 1) // 2  # visible (query, key) pairs
+    row = dict(name=name, shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D,
+                                     causal=True),
+               max_abs_err=err, lse_max_abs_err=lse_err, tol=TOL[dt],
+               reproducible=True, planted_fault=fault,
                ms=time_ms(lambda: flash.flash_attention_fwd(
                    q, k, v, causal=True)),
                plain_ms=time_ms(lambda: flash.flash_attention_fwd_plain(
                    q, k, v, causal=True), iters=5),
                library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                               enable_gqa=True)))
-    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, str(dtype)[6:])
+                                               enable_gqa=Hkv != H)),
+               library="SDPA fwd, causal")
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, dt)
+    if dt == "bfloat16" and sm_clock_hz:
+        # The XU pipe's least time for the exponentials and packs alone,
+        # at the card's largest SM clock.
+        row["xu_floor_ms"] = 1e3 * pairs * XU_OPS_PER_PAIR / (
+            XU_OPS_PER_SM_CLOCK * torch.cuda.get_device_properties(
+                0).multi_processor_count * sm_clock_hz)
     return row
 
 
@@ -282,16 +329,8 @@ def flash_kv_len_case(flash, name, B, S, H, Hkv, D, causal, kv_len, dtype,
                              f"{err}, lse {lse_err}, finite lse {finite}")
     fault = None
     if fault_lib is not None:
-        from pytorch_distributed_training_example_tpu_torch.ops import _build
-
-        sound = _build._loaded["flash_fwd"]
-        _build._loaded["flash_fwd"] = ctypes.CDLL(fault_lib)
-        flash._flash_fwd_fn.cache_clear()
-        try:
+        with planted("flash_fwd", fault_lib):
             f_err, f_lse, _ = errors()
-        finally:
-            _build._loaded["flash_fwd"] = sound
-            flash._flash_fwd_fn.cache_clear()
         if f_err <= TOL[dt] and f_lse <= LSE_TOL:
             raise AssertionError(f"the kv_len check passed the planted "
                                  f"fault: {f_err}, {f_lse}")
@@ -511,12 +550,9 @@ def gmm_dw_case(gmm, name, M, N, dtype, gen, starts, counts, fault_lib):
                              f"elementwise bound, relative L2 {rel_l2}")
     fault = None
     if fault_lib is not None:
-        sound = _swap_gmm_library(gmm, ctypes.CDLL(fault_lib))
-        try:
+        with planted("grouped_matmul", fault_lib):
             bad = gmm.grouped_matmul_dw(*args)
             torch.cuda.synchronize()
-        finally:
-            _swap_gmm_library(gmm, sound)
         f_worst, f_l2 = elementwise_errors(bad, ref, tol)
         if f_worst <= 1 and f_l2 <= tol[2]:
             raise AssertionError(f"the dw check passed the planted fault: "
@@ -541,18 +577,6 @@ def gmm_dw_case(gmm, name, M, N, dtype, gen, starts, counts, fault_lib):
     row["bound_ms"], row["bound_by"] = bound(
         (Tk * M + Tk * N) * item + 4 * E * M * N, 2.0 * Tk * M * N, dt)
     return row
-
-
-def _swap_gmm_library(gmm, lib):
-    """Put ``lib`` in place of the loaded grouped_matmul library; returns
-    the one it replaced."""
-    from pytorch_distributed_training_example_tpu_torch.ops import _build
-
-    old = _build._loaded["grouped_matmul"]
-    _build._loaded["grouped_matmul"] = lib
-    gmm._gmm_fn.cache_clear()
-    gmm._gmm_dw_fn.cache_clear()
-    return old
 
 
 def near_tie_rows(router, idx, ref_idx, logits) -> list:
@@ -649,17 +673,9 @@ def bn_matmul_case(fbm, bn_bench, name, N, K, C, affine, relu, dtype, gen,
                              "two calls differ")
     fault = None
     if fault_lib is not None:
-        from pytorch_distributed_training_example_tpu_torch.ops import _build
-
-        sound = _build._loaded["fused_bn_matmul"]
-        _build._loaded["fused_bn_matmul"] = ctypes.CDLL(fault_lib)
-        fbm._kernel_fn.cache_clear()
-        try:
+        with planted("fused_bn_matmul", fault_lib):
             bad = errors(fbm.fused_stats_matmul(*args, relu=relu))
             torch.cuda.synchronize()
-        finally:
-            _build._loaded["fused_bn_matmul"] = sound
-            fbm._kernel_fn.cache_clear()
         if passes(bad):
             raise AssertionError(f"the BN-stats check passed the planted "
                                  f"fault: {bad}")
@@ -707,7 +723,9 @@ def device_profile(prof, wall_s: float, top: int = 8) -> dict:
     rows = sorted(by_name.items(), key=lambda r: -r[1])
     return {"wall_ms": 1e3 * wall_s, "device_ms": device_ms,
             "busy_share": device_ms / (1e3 * wall_s),
-            # K2's three kernels (delta pre-pass, dq, dk/dv) together
+            # K1f/K1o's kernel and K2's three (delta pre-pass, dq, dk/dv)
+            "flash_fwd_ms": sum(ms for k, ms in by_name.items()
+                                if "flash_fwd_" in k),
             "flash_bwd_ms": sum(ms for k, ms in by_name.items()
                                 if "flash_bwd_" in k),
             "top": [{"kernel": k[:80], "ms": ms, "share": ms / device_ms}
@@ -782,75 +800,66 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
-    emit("device", nvidia_smi=smi, kind=kind,
+    # The largest SM clock, for the XU floor of the forward's rows (None
+    # where nvidia-smi does not report it).
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    sm_clock_hz = (1e6 * float(clock[0])
+                   if clock and clock[0].replace(".", "").isdigit() else None)
+    emit("device", nvidia_smi=smi, kind=kind, max_sm_clock_hz=sm_clock_hz,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
     # 2. Build every kernel from the checkout, one nvcc per source at once,
     # and beside them the planted-fault copies the checks must fail: of
-    # grouped_matmul.cu (the dw check), flash_fwd.cu (the kv_len check) and
-    # fused_bn_matmul.cu (the BN-stats check).
+    # grouped_matmul.cu (the dw check), flash_fwd.cu (the kv_len check and
+    # the causal check) and fused_bn_matmul.cu (the BN-stats check).
     fault_dir = os.path.join(_build.BUILD_DIR, "planted_fault")
     os.makedirs(fault_dir, exist_ok=True)
-    with open(os.path.join(_build.CSRC_DIR, "grouped_matmul.cu")) as f:
-        source = f.read()
-    if source.count(DROPPED_ROWS[0]) != 1:
-        raise AssertionError("the planted fault's line is not in "
-                             "grouped_matmul.cu exactly once")
-    fault_src = os.path.join(fault_dir, "grouped_matmul_fault.cu")
-    with open(fault_src, "w") as f:
-        f.write(source.replace(*DROPPED_ROWS))
-    fault_lib = os.path.join(fault_dir, "libgmm_fault.so")
-    fault_proc = subprocess.Popen(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
-         "-o", fault_lib, fault_src], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-    # ... and the copy of flash_fwd.cu that ignores kv_len.
-    with open(os.path.join(_build.CSRC_DIR, "flash_fwd.cu")) as f:
-        source = f.read()
-    if source.count(IGNORED_KV_LEN[0]) != 1:
-        raise AssertionError("the planted fault's line is not in "
-                             "flash_fwd.cu exactly once")
-    kv_fault_src = os.path.join(fault_dir, "flash_fwd_fault.cu")
-    with open(kv_fault_src, "w") as f:
-        f.write(source.replace(*IGNORED_KV_LEN))
-    kv_fault_lib = os.path.join(fault_dir, "libflash_fwd_fault.so")
-    kv_fault_proc = subprocess.Popen(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
-         "-o", kv_fault_lib, kv_fault_src], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-    # ... and the copy of fused_bn_matmul.cu that drops a stats partial.
-    with open(os.path.join(_build.CSRC_DIR, "fused_bn_matmul.cu")) as f:
-        source = f.read()
-    if source.count(DROPPED_PARTIAL[0]) != 1:
-        raise AssertionError("the planted fault's line is not in "
-                             "fused_bn_matmul.cu exactly once")
-    bn_fault_src = os.path.join(fault_dir, "fused_bn_matmul_fault.cu")
-    with open(bn_fault_src, "w") as f:
-        f.write(source.replace(*DROPPED_PARTIAL))
-    bn_fault_lib = os.path.join(fault_dir, "libfused_bn_matmul_fault.so")
-    bn_fault_proc = subprocess.Popen(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
-         "-o", bn_fault_lib, bn_fault_src], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    faults = {"gmm": ("grouped_matmul", DROPPED_ROWS),
+              "kv_len": ("flash_fwd", IGNORED_KV_LEN),
+              "diagonal": ("flash_fwd", UNMASKED_DIAGONAL),
+              "bn": ("fused_bn_matmul", DROPPED_PARTIAL)}
+    fault_libs, fault_procs = {}, []
+    for key, (name, (old, new)) in faults.items():
+        with open(os.path.join(_build.CSRC_DIR, f"{name}.cu")) as f:
+            source = f.read()
+        if source.count(old) != 1:
+            raise AssertionError(f"the planted fault's line is not in "
+                                 f"{name}.cu exactly once: {old!r}")
+        fault_src = os.path.join(fault_dir, f"{name}_{key}_fault.cu")
+        with open(fault_src, "w") as f:
+            f.write(source.replace(old, new))
+        fault_libs[key] = os.path.join(fault_dir, f"lib{name}_{key}_fault.so")
+        fault_procs.append(subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+             "-o", fault_libs[key], fault_src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
     built = _build.build_all()
-    for proc in (fault_proc, kv_fault_proc, bn_fault_proc):
+    for proc in fault_procs:
         fault_log, _ = proc.communicate()
         if proc.returncode != 0:
             raise AssertionError(f"nvcc failed on a planted fault:\n"
                                  f"{fault_log}")
-    # The bf16 backward's wgmma kernels must not spill (a library built
-    # earlier, by the kernel tests, reports no log: not checked then).
-    spills = wgmma_spills(built["logs"]["flash_bwd"])
-    if built["logs"]["flash_bwd"] and (len(spills) != 4
-                                       or any(spills.values())):
-        raise AssertionError(f"flash_bwd's wgmma kernels spill: {spills}")
+    # The bf16 forward's and backward's wgmma kernels must not spill (a
+    # library built earlier, by the kernel tests, reports no log: not
+    # checked then).
+    spills = {}
+    for name, n_kernels in (("flash_fwd", 2), ("flash_bwd", 4)):
+        spills[name] = wgmma_spills(built["logs"][name])
+        if built["logs"][name] and (len(spills[name]) != n_kernels
+                                    or any(spills[name].values())):
+            raise AssertionError(f"{name}'s wgmma kernels spill: "
+                                 f"{spills[name]}")
     emit("build", seconds=built["seconds"],
          ptxas={name: [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln
                        or "Performance Loss" in ln]
                 for name, log in built["logs"].items()},
-         flash_bwd_wgmma_spill_bytes=spills or None)
+         flash_fwd_wgmma_spill_bytes=spills["flash_fwd"] or None,
+         flash_bwd_wgmma_spill_bytes=spills["flash_bwd"] or None)
 
     # 3. Each kernel against its plain version at the serving shapes.
     gen = torch.Generator(device="cuda")
@@ -862,10 +871,24 @@ def main() -> int:
             row = paged_decode_case(flash, B, positions, dtype, gen)
             rows[row["name"]] = row
             emit("kernel_check", kernel="paged_decode", **row)
-        for S in (1024, 2048):
-            row = flash_case(flash, S, dtype, gen)
+        # The causal forward at llama3_8b's prefill shapes, and at the
+        # training microbatches of gpt2_124m and llama_moe; bf16 at gpt2's
+        # also fails the planted fault. bf16 at head_dim 256 (no model's)
+        # keeps the mma.sync kernel.
+        d256 = (("D256", 1, 2048, 16, 4, 256),) \
+            if dtype == torch.bfloat16 else ()
+        for case in (("S=1024", 1, 1024, 32, 8, 128),
+                     ("S=2048", 1, 2048, 32, 8, 128),
+                     ("gpt2", 16, 1024, 12, 12, 64),
+                     ("llama_moe", 4, 2048, 16, 4, 64)) + d256:
+            row = flash_case(flash, *case, dtype, gen, sm_clock_hz,
+                             fault_libs["diagonal"] if (
+                                 case[0] == "gpt2"
+                                 and dtype == torch.bfloat16) else None)
             rows[row["name"]] = row
             emit("kernel_check", kernel="flash_fwd", **row)
+            gc.collect()
+            torch.cuda.empty_cache()
     # The backward at the training shapes: gpt2_124m's microbatch (bf16 and
     # fp32), llama3_8b's GQA heads at 2048 tokens, ViT-B/16's 197 tokens
     # padded to 256 (keys past 197 masked, non-causal).
@@ -898,7 +921,7 @@ def main() -> int:
             emit("kernel_check", kernel="gmm", **row)
         for name, M, N in (("up", D, F), ("down", F, D)):
             row = gmm_dw_case(gmm, name, M, N, dtype, gen, starts, counts,
-                              fault_lib if (name == "up" and
+                              fault_libs["gmm"] if (name == "up" and
                                             dtype == torch.bfloat16)
                               else None)
             rows[row["name"]] = row
@@ -920,7 +943,7 @@ def main() -> int:
                      ("causal_chunked", 128, 256, 12, 12, 64, True, None)):
             row = flash_kv_len_case(
                 flash, *case, dtype, gen,
-                kv_fault_lib if (case[0] == "vit"
+                fault_libs["kv_len"] if (case[0] == "vit"
                                  and dtype == torch.bfloat16) else None)
             rows[row["name"]] = row
             emit("kernel_check", kernel="flash_fwd_kv_len", **row)
@@ -940,7 +963,7 @@ def main() -> int:
                      ("ragged_affine", 3001, 64, 200, True, False)):
             row = bn_matmul_case(
                 fbm, bn_bench, *case, dtype, gen,
-                bn_fault_lib if (case[0] == "stage2_reduce"
+                fault_libs["bn"] if (case[0] == "stage2_reduce"
                                  and dtype == torch.bfloat16) else None)
             rows[row["name"]] = row
             emit("kernel_check", kernel="fused_bn_matmul", **row)
@@ -1735,6 +1758,7 @@ def main() -> int:
                              source=f"{PKG}/csrc/paged_decode.cu",
                              replaces=f"{flash_py}:1037"),
         "flash_fwd": dict(route="cuda", source=f"{PKG}/csrc/flash_fwd.cu",
+                          design="wgmma + TMA ring",
                           replaces=f"{flash_py}:93"),
         "flash_bwd": dict(route="cuda", source=f"{PKG}/csrc/flash_bwd.cu",
                           design="wgmma + TMA ring",
@@ -1751,6 +1775,7 @@ def main() -> int:
                      "fused_router.py:54"),
         "flash_fwd_kv_len": dict(route="cuda",
                                  source=f"{PKG}/csrc/flash_fwd.cu",
+                                 design="wgmma + TMA ring",
                                  replaces=f"{flash_py}:490",
                                  also_replaces=[f"{flash_py}:512"]),
         "fused_bn_matmul": dict(

@@ -162,13 +162,8 @@ def main(argv=None) -> int:
                          text=True).stdout.strip()
     print(smi, flush=True)
     lib = build()
-    _build._loaded["flash_bwd"] = lib
-    flash._flash_bwd_fn.cache_clear()
-    try:
+    with _build.using("flash_bwd", lib):
         rows = {name: phases(lib, shape) for name, shape in SHAPES.items()}
-    finally:
-        _build._loaded.pop("flash_bwd", None)
-        flash._flash_bwd_fn.cache_clear()
     assert all(math.isfinite(x) for r in rows.values()
                for x in r["dkv_clocks_per_tile"].values())
     print(json.dumps({"device": torch.cuda.get_device_name(0),

@@ -636,7 +636,6 @@ constexpr int kWgThreads = (kConsumers + 1) * 128;  // + the producer's
 // back (one warp of it issues the copies, the other three exit), the
 // consumers take them: 40 * 128 + 232 * 256 of the SM's 65,536.
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct WgCfg {
@@ -665,70 +664,6 @@ struct WgCfg {
   static constexpr size_t kDqBytes =
       1024 + kDqTiles + sizeof(uint64_t) * (2 * kDqStages + 1);
 };
-
-// Descriptor offsets, in the descriptor's 16-byte units. K-major: K step
-// kk of a tile of `rows` rows sits in region kk / 4, 32 bytes a step inside
-// it. MN-major: K step kk is rows 16kk..16kk+15, 2048 bytes a step.
-__host__ __device__ constexpr uint64_t kmajor_step(int rows, int kk) {
-  return (uint64_t)((kk / 4) * rows * 8 + (kk % 4) * 2);
-}
-__host__ __device__ constexpr uint64_t mnmajor_step(int kk) {
-  return (uint64_t)(kk * 128);
-}
-// The descriptor of a K-major tile at shared address `addr`, and of an
-// MN-major one of `rows` rows (its 64-column regions rows * 128 bytes
-// apart).
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return desc_sw128(addr, 16, 1024);
-}
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, int rows) {
-  return desc_sw128(addr, rows * 128, 1024);
-}
-
-// A value the compiler must take as new in every iteration: the loops
-// derive every tile's descriptors from the shared-memory base inside the
-// loop, instead of holding a dozen 64-bit descriptors in registers across
-// it.
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Round an m64nN accumulator to bf16 A fragments, one per K step of 16.
-template <int N>
-__device__ __forceinline__ void to_a_frags(const float (&c)[N / 2],
-                                           uint32_t (&a)[N / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
-    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
-    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
-    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
-  }
-}
-
-// Store an m64nD fp32 accumulator as bf16 rows row[0], row[1] (skipped at
-// or past n_rows) of a [rows, row_stride] matrix at base.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, size_t row_stride,
-                                           const int (&row)[2], int n_rows,
-                                           int tig, const float (&c)[D / 2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= n_rows) continue;
-    bf16* p = base + (size_t)row[i] * row_stride + tig * 2;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(p + j * 8) =
-          __floats2bfloat162_rn(c[4 * j + 2 * i], c[4 * j + 2 * i + 1]);
-  }
-}
 
 // dq = sum over key tiles of ds k: one block per (128-row q tile, head,
 // batch), the last q tiles (the longest causal rows) of every head first.

@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace pdtx {
 
 // ---------------------------------------------------------------------------
@@ -280,6 +282,43 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory,
+// both K-major; scale_d 0 overwrites d.
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the m16n8k16
 // A-fragment layout, one 16-row strip a warp), B from shared memory,
 // MN-major (its rows run down K); scale_d 0 overwrites d.
@@ -346,5 +385,75 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// ---------------------------------------------------------------------------
+// Device: operands of the wgmma kernels
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Descriptor offsets, in the descriptor's 16-byte units. K-major: K step
+// kk of a tile of `rows` rows sits in region kk / 4, 32 bytes a step inside
+// it. MN-major: K step kk is rows 16kk..16kk+15, 2048 bytes a step.
+__host__ __device__ constexpr uint64_t kmajor_step(int rows, int kk) {
+  return (uint64_t)((kk / 4) * rows * 8 + (kk % 4) * 2);
+}
+__host__ __device__ constexpr uint64_t mnmajor_step(int kk) {
+  return (uint64_t)(kk * 128);
+}
+// The descriptor of a K-major tile at shared address `addr`, and of an
+// MN-major one of `rows` rows (its 64-column regions rows * 128 bytes
+// apart).
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return desc_sw128(addr, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, int rows) {
+  return desc_sw128(addr, rows * 128, 1024);
+}
+
+// A value the compiler must take as new in every iteration: the loops
+// derive every tile's descriptors from the shared-memory base inside the
+// loop, instead of holding a dozen 64-bit descriptors in registers across
+// it.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Round an m64nN accumulator to bf16 A fragments, one per K step of 16.
+template <int N>
+__device__ __forceinline__ void to_a_frags(const float (&c)[N / 2],
+                                           uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+// Store an m64nD fp32 accumulator as bf16 rows row[0], row[1] (skipped at
+// or past n_rows) of a [rows, row_stride] matrix at base.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
+                                           size_t row_stride,
+                                           const int (&row)[2], int n_rows,
+                                           int tig, const float (&c)[D / 2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= n_rows) continue;
+    __nv_bfloat16* p = base + (size_t)row[i] * row_stride + tig * 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(p + j * 8) =
+          __floats2bfloat162_rn(c[4 * j + 2 * i], c[4 * j + 2 * i + 1]);
+  }
+}
 
 }  // namespace pdtx

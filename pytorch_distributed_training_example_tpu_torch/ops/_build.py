@@ -12,11 +12,17 @@ named by a hash of their source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited source or header is rebuilt
 and an unchanged one is reused. A library is written under a temporary name
 and renamed into place, so a reader never sees a half-written file.
+
+A wrapper takes its C function from the library once (``cached``);
+``using`` puts another build of a source in place of the loaded one for
+the length of a block, as the planted-fault checks and the clock probes do.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,6 +41,8 @@ SOURCES = ("paged_decode", "flash_fwd", "flash_bwd", "grouped_matmul",
            "fused_router", "fused_bn_matmul")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+#: Per library, the cached getters of its functions (``cached``).
+_getters: dict[str, list] = {}
 
 
 def nvcc_path() -> str:
@@ -106,6 +114,38 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_paths(name)[1])
         _loaded[name] = lib
     return lib
+
+
+def cached(name: str):
+    """Decorator: cache a wrapper's getter of a function of library
+    ``name``; ``using`` clears the cache when it swaps the library."""
+    def wrap(getter):
+        getter = functools.cache(getter)
+        _getters.setdefault(name, []).append(getter)
+        return getter
+    return wrap
+
+
+@contextlib.contextmanager
+def using(name: str, lib: ctypes.CDLL):
+    """Inside the block ``library(name)`` is ``lib`` (another build of
+    ``csrc/<name>.cu``); the library loaded before, or none, comes back
+    after."""
+    before = _loaded.get(name)
+
+    def swap(to):
+        if to is None:
+            _loaded.pop(name, None)
+        else:
+            _loaded[name] = to
+        for getter in _getters.get(name, ()):
+            getter.cache_clear()
+
+    swap(lib)
+    try:
+        yield lib
+    finally:
+        swap(before)
 
 
 def check(err: int, what: str) -> None:

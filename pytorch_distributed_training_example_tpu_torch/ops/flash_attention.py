@@ -35,7 +35,6 @@ PyTorch, as the JAX package leaves it to XLA.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -112,7 +111,7 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
             torch.logsumexp(logits, dim=-1))
 
 
-@functools.cache
+@_build.cached("flash_fwd")
 def _flash_fwd_fn():
     fn = _build.library("flash_fwd").pdtx_flash_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
@@ -234,7 +233,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-@functools.cache
+@_build.cached("flash_bwd")
 def _flash_bwd_fn():
     fn = _build.library("flash_bwd").pdtx_flash_bwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
@@ -349,7 +348,7 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table,
                                    positions[:, None])[:, 0]
 
 
-@functools.cache
+@_build.cached("paged_decode")
 def _paged_decode_fn():
     fn = _build.library("paged_decode").pdtx_paged_decode
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6

@@ -35,7 +35,6 @@ does: its entry point is the bench (``bench/fused_bn_bench.py``).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -90,7 +89,7 @@ def fused_stats_matmul_plain(x, w, scale=None, bias=None, *,
     return acc.to(x.dtype), stats
 
 
-@functools.cache
+@_build.cached("fused_bn_matmul")
 def _kernel_fn():
     lib = _build.library("fused_bn_matmul")
     fn = lib.pdtx_bn_matmul

@@ -26,7 +26,6 @@ launches and nothing else.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -74,7 +73,7 @@ def fused_router_plain(logits: torch.Tensor, top_k: int):
     return gates, idx.to(torch.int32), lse, probs.mean(0)
 
 
-@functools.cache
+@_build.cached("fused_router")
 def _router_fn():
     fn = _build.library("fused_router").pdtx_fused_router
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3

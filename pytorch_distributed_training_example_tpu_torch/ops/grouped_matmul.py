@@ -29,7 +29,6 @@ raises) and takes its plain version only for CPU tensors; each carries
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -90,7 +89,7 @@ def grouped_matmul_plain(x, w, group_starts, group_counts, *,
     return out
 
 
-@functools.cache
+@_build.cached("grouped_matmul")
 def _gmm_fn():
     fn = _build.library("grouped_matmul").pdtx_gmm
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
@@ -151,7 +150,7 @@ def grouped_matmul_dw_plain(x, dout, group_starts, group_counts):
     return dw
 
 
-@functools.cache
+@_build.cached("grouped_matmul")
 def _gmm_dw_fn():
     fn = _build.library("grouped_matmul").pdtx_gmm_dw
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [

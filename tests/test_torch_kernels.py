@@ -23,6 +23,13 @@ different product to bf16 (dp, the grad of its bf16 probabilities, where
 the kernel rounds ds): one more rounding of every term, so c is 2^-3 and
 the L2 bound 1e-2 there (``PATH_GRAD_TOL``).
 
+The causal forward is held at llama3_8b's prefill, a ragged prompt
+(S 1000), small ragged shapes and llama_moe's training microbatch (GQA
+16/4, S 2048); two calls give the same bits
+(``test_flash_fwd_is_bitwise_reproducible``), and a kernel that leaves the
+tiles crossing the diagonal unmasked fails the check
+(``test_flash_fwd_check_catches_unmasked_diagonal``).
+
 The forward with ``kv_len`` (the one-shot kernels' contract, which the
 padded path runs) is held in the forward's tolerances at ViT-B/16's
 microbatch (197 tokens padded to 256), a causal case, a GQA case, and
@@ -132,6 +139,44 @@ def test_library_names_follow_source_and_flags():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
+class _FakeLibrary:
+    """Stands in for a ctypes.CDLL: each attribute is an object of its own
+    that takes argtypes and restype."""
+
+    def __getattr__(self, name):
+        fn = type(name, (), {})()
+        setattr(self, name, fn)
+        return fn
+
+
+@pytest.mark.parametrize("getter,library,symbol", [
+    (flash._flash_fwd_fn, "flash_fwd", "pdtx_flash_fwd"),
+    (flash._flash_bwd_fn, "flash_bwd", "pdtx_flash_bwd"),
+    (flash._paged_decode_fn, "paged_decode", "pdtx_paged_decode"),
+    (gmm._gmm_fn, "grouped_matmul", "pdtx_gmm"),
+    (gmm._gmm_dw_fn, "grouped_matmul", "pdtx_gmm_dw"),
+    (router._router_fn, "fused_router", "pdtx_fused_router"),
+    (fbm._kernel_fn, "fused_bn_matmul", "pdtx_bn_matmul")],
+    ids=["flash_fwd", "flash_bwd", "paged_decode", "gmm", "gmm_dw",
+         "fused_router", "fused_bn_matmul"])
+def test_using_swaps_a_library_and_restores_it(getter, library, symbol):
+    """Inside ``_build.using`` a wrapper's cached C function comes from the
+    library given; after it, from the one loaded before, or none."""
+    def fn():
+        got = getter()
+        return got[0] if isinstance(got, tuple) else got
+
+    loaded = dict(_build._loaded)
+    outer, inner = _FakeLibrary(), _FakeLibrary()
+    with _build.using(library, outer):
+        assert fn() is getattr(outer, symbol)
+        with _build.using(library, inner):
+            assert fn() is getattr(inner, symbol)
+        assert fn() is getattr(outer, symbol)
+    assert _build._loaded == loaded
+    assert getter.cache_info().currsize == 0
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -166,7 +211,9 @@ def test_paged_decode_kernel_matches_plain(cuda_device, dtype, H, Hkv, D):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("B,S,H,Hkv,D", [(1, 1024, 32, 8, 128),
                                          (2, 200, 4, 2, 64),
-                                         (1, 192, 2, 1, 256)])
+                                         (1, 192, 2, 1, 256),
+                                         (4, 2048, 16, 4, 64),
+                                         (1, 1000, 32, 8, 128)])
 def test_flash_fwd_kernel_matches_plain(cuda_device, dtype, causal, B, S, H,
                                         Hkv, D):
     q, k, v = (t.to(cuda_device, dtype) for t in _qkv(B, S, S, H, Hkv, D))
@@ -253,8 +300,7 @@ IGNORED_KV_LEN = (
 
 
 @pytest.mark.cuda
-def test_flash_fwd_kv_len_check_catches_ignored_kv_len(cuda_device, tmp_path,
-                                                       monkeypatch):
+def test_flash_fwd_kv_len_check_catches_ignored_kv_len(cuda_device, tmp_path):
     """At ViT-B/16's shape (batch cut to 8), bf16, the forward check passes
     the kernel as built and fails a build that ignores kv_len."""
     with open(os.path.join(_build.CSRC_DIR, "flash_fwd.cu")) as f:
@@ -272,13 +318,65 @@ def test_flash_fwd_kv_len_check_catches_ignored_kv_len(cuda_device, tmp_path,
     q, k, v = (t.to(cuda_device, torch.bfloat16)
                for t in _qkv(8, 256, 256, 12, 12, 64))
     assert _kv_len_fwd_close(q, k, v, False, 197)
-    try:
-        monkeypatch.setitem(_build._loaded, "flash_fwd",
-                            ctypes.CDLL(str(lib)))
-        flash._flash_fwd_fn.cache_clear()
+    with _build.using("flash_fwd", ctypes.CDLL(str(lib))):
         assert not _kv_len_fwd_close(q, k, v, False, 197)
-    finally:
-        flash._flash_fwd_fn.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D", [(2, 1024, 12, 12, 64),
+                                         (1, 2048, 16, 4, 64),
+                                         (1, 1000, 32, 8, 128)])
+def test_flash_fwd_is_bitwise_reproducible(cuda_device, B, S, H, Hkv, D):
+    """Two calls give identical bf16 outputs and lse, at the gpt2 shape
+    (batch cut to 2), llama_moe's GQA 16/4 heads and a ragged prompt."""
+    q, k, v = (t.to(cuda_device, torch.bfloat16)
+               for t in _qkv(B, S, S, H, Hkv, D))
+    first = flash.flash_attention_fwd(q, k, v, causal=True)
+    second = flash.flash_attention_fwd(q, k, v, causal=True)
+    for name, a, b in zip(("out", "lse"), first, second):
+        assert torch.equal(a, b), name
+
+
+#: The planted fault: the wgmma forward leaves the key tiles that cross the
+#: diagonal unmasked.
+UNMASKED_DIAGONAL = (
+    "  const bool edge = (causal && k0 + kBN - 1 > qw0) || k0 + kBN > kvl;\n",
+    "  const bool edge = k0 + kBN > kvl;  // planted fault: diagonal open\n")
+
+
+def _causal_fwd_close(q, k, v) -> bool:
+    """The causal forward against its plain version in the forward's
+    tolerances (``TOL`` for the output, 1e-3 for lse)."""
+    out, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = flash.flash_attention_fwd_plain(q, k, v, causal=True)
+    err = float((out.float() - ref.float()).abs().max())
+    lse_err = float((lse - ref_lse).abs().max())
+    print(json.dumps({"max_abs_err": err, "lse_max_abs_err": lse_err}))
+    return err <= TOL[q.dtype] and lse_err <= 1e-3
+
+
+@pytest.mark.cuda
+def test_flash_fwd_check_catches_unmasked_diagonal(cuda_device, tmp_path):
+    """At the gpt2 training shape (batch cut to 2), bf16, the causal check
+    passes the kernel as built and fails a build that leaves the diagonal
+    tiles unmasked."""
+    with open(os.path.join(_build.CSRC_DIR, "flash_fwd.cu")) as f:
+        source = f.read()
+    old, new = UNMASKED_DIAGONAL
+    assert source.count(old) == 1
+    src = tmp_path / "flash_fwd_fault.cu"
+    src.write_text(source.replace(old, new))
+    lib = tmp_path / "libflash_fwd_fault.so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                           _build.CSRC_DIR, "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+    q, k, v = (t.to(cuda_device, torch.bfloat16)
+               for t in _qkv(2, 1024, 1024, 12, 12, 64))
+    assert _causal_fwd_close(q, k, v)
+    with _build.using("flash_fwd", ctypes.CDLL(str(lib))):
+        assert not _causal_fwd_close(q, k, v)
 
 
 def _grad_errors(got, ref, tol):
@@ -353,8 +451,7 @@ _DROPPED_TILES = {
 
 
 @pytest.mark.cuda
-def test_flash_bwd_check_catches_dropped_tiles(cuda_device, tmp_path,
-                                               monkeypatch):
+def test_flash_bwd_check_catches_dropped_tiles(cuda_device, tmp_path):
     """The bf16 grad check is sharp enough to fail a kernel that drops one
     tile's share of dq or of dk/dv, at the gpt2 training shape (batch cut
     to 2), where the same check passes the kernel as built."""
@@ -380,20 +477,16 @@ def test_flash_bwd_check_catches_dropped_tiles(cuda_device, tmp_path,
     ref = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
     assert _grads_close(flash.flash_attention_bwd(q, k, v, o, lse, do,
                                                   causal=True), ref, tol)
-    try:
-        for name in _DROPPED_TILES:
-            monkeypatch.setitem(_build._loaded, "flash_bwd",
-                                ctypes.CDLL(str(tmp_path / f"lib_{name}.so")))
-            flash._flash_bwd_fn.cache_clear()
+    for name in _DROPPED_TILES:
+        with _build.using("flash_bwd",
+                          ctypes.CDLL(str(tmp_path / f"lib_{name}.so"))):
             got = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-            # What a bound of 2e-2 of the largest gradient would have read.
-            print(json.dumps({"dropped": name, "max_abs_err": max(
-                float((g.float() - r.float()).abs().max())
-                for g, r in zip(got, ref)), "bound_2e-2_of_max": 2e-2 * max(
-                float(r.float().abs().max()) for r in ref)}))
-            assert not _grads_close(got, ref, tol), name
-    finally:
-        flash._flash_bwd_fn.cache_clear()
+        # What a bound of 2e-2 of the largest gradient would have read.
+        print(json.dumps({"dropped": name, "max_abs_err": max(
+            float((g.float() - r.float()).abs().max())
+            for g, r in zip(got, ref)), "bound_2e-2_of_max": 2e-2 * max(
+            float(r.float().abs().max()) for r in ref)}))
+        assert not _grads_close(got, ref, tol), name
 
 
 @pytest.mark.cuda
@@ -587,8 +680,7 @@ _DROPPED_ROWS = ("  const int rb = starts[e];\n",
 
 
 @pytest.mark.cuda
-def test_gmm_dw_check_catches_a_dropped_row_tile(cuda_device, tmp_path,
-                                                 monkeypatch):
+def test_gmm_dw_check_catches_a_dropped_row_tile(cuda_device, tmp_path):
     """The dw check fails a kernel that leaves one row tile of one expert
     out of its sum, at the llama_moe up-projection shape, where it passes
     the kernel as built."""
@@ -614,14 +706,9 @@ def test_gmm_dw_check_catches_a_dropped_row_tile(cuda_device, tmp_path,
     tol = GRAD_TOL[torch.bfloat16]
     assert _elementwise_close(gmm.grouped_matmul_dw(x, dout, starts, counts),
                               ref, tol)
-    try:
-        monkeypatch.setitem(_build._loaded, "grouped_matmul",
-                            ctypes.CDLL(str(lib)))
-        gmm._gmm_dw_fn.cache_clear()
+    with _build.using("grouped_matmul", ctypes.CDLL(str(lib))):
         got = gmm.grouped_matmul_dw(x, dout, starts, counts)
-        assert not _elementwise_close(got, ref, tol)
-    finally:
-        gmm._gmm_dw_fn.cache_clear()
+    assert not _elementwise_close(got, ref, tol)
 
 
 @pytest.mark.cuda
@@ -775,8 +862,7 @@ _DROPPED_PARTIAL = (
 
 @pytest.mark.cuda
 def test_fused_bn_matmul_check_catches_a_dropped_partial(cuda_device,
-                                                         tmp_path,
-                                                         monkeypatch):
+                                                         tmp_path):
     """The check fails a kernel that leaves one 128-row tile out of the
     statistics, at the bench's first shape (one tile of 3136), where it
     passes the kernel as built."""
@@ -795,14 +881,9 @@ def test_fused_bn_matmul_check_catches_a_dropped_partial(cuda_device,
     args = _bn_inputs(401408, 256, 64, True, torch.bfloat16, cuda_device)
     ref = fbm.fused_stats_matmul_plain(*args)
     assert _bn_close(fbm.fused_stats_matmul(*args), ref, torch.bfloat16)
-    try:
-        monkeypatch.setitem(_build._loaded, "fused_bn_matmul",
-                            ctypes.CDLL(str(lib)))
-        fbm._kernel_fn.cache_clear()
+    with _build.using("fused_bn_matmul", ctypes.CDLL(str(lib))):
         got = fbm.fused_stats_matmul(*args)
-        assert not _bn_close(got, ref, torch.bfloat16)
-    finally:
-        fbm._kernel_fn.cache_clear()
+    assert not _bn_close(got, ref, torch.bfloat16)
 
 
 @pytest.mark.cuda
