@@ -88,10 +88,15 @@ MOE_ARGV = ["--model", "llama_moe", "--dataset", "lm", "--seq-len", "2048",
             "--steps-per-epoch", str(MOE_STEPS), "--moe-dispatch", "dropless",
             "--moe-router-impl", "fused", "--log-every", "1",
             "--eval-every-epochs", "2"]
-# The planted fault of the dw check: the dw kernel leaves out the first
-# 32-row tile of expert 1's segment.
-DROPPED_ROWS = ("  const int rb = starts[e];\n",
-                "  const int rb = starts[e] + (e == 1 ? kBK : 0);\n")
+# The planted fault of the dw check: the dw plan leaves the first 64-row
+# slice of expert 1's first row chunk out.
+DROPPED_ROWS = (
+    "      const int k0 = start[e] + j * s;\n",
+    "      const int k0 = start[e] + j * s + (e == 1 && j == 0 ? kSliceK : 0);\n")
+# The planted fault of the gmm check: work item 0 (the first row tile's
+# first column tile) leaves its last 64-deep K slice out.
+DROPPED_SLICE = ("    n_k = (a.K + kSliceK - 1) / kSliceK;\n",
+                 "    n_k = (a.K + kSliceK - 1) / kSliceK - (i == 0);\n")
 # The ViT training command (ROADMAP slice 4), logged every step, warmed up
 # over its 4 steps, the epoch-end eval off (the profile phase runs it).
 VIT_LAYERS, VIT_GRAD_ACCUM, VIT_STEPS = 12, 8, 4
@@ -474,7 +479,12 @@ def moe_segments(Tk: int, E: int):
     weights = np.arange(1, E - 1)
     rest = np.random.default_rng(7).multinomial(Tk - heavy,
                                                 weights / weights.sum())
-    counts = np.concatenate([[0, heavy], rest]).astype(np.int32)
+    return segments_of(np.concatenate([[0, heavy], rest]))
+
+
+def segments_of(counts):
+    """starts and counts, int32 on the card, of segments in expert order."""
+    counts = np.asarray(counts, np.int32)
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
     return (torch.from_numpy(starts).cuda(), torch.from_numpy(counts).cuda())
 
@@ -492,9 +502,12 @@ def grouped_mm_ms(fn):
     return time_ms(fn), "torch._grouped_mm"
 
 
-def gmm_case(gmm, name, K, N, transpose_w, dtype, gen, starts, counts):
+def gmm_case(gmm, name, K, N, transpose_w, dtype, gen, starts, counts,
+             fault_lib=None):
     """K4a against its plain version at one llama_moe shape: x [Tk, K] and
-    w [E, K, N] (or [E, N, K] read transposed: the backward's dx)."""
+    w [E, K, N] (or [E, N, K] read transposed: the backward's dx). Two
+    calls must give the same bits; with ``fault_lib``, the same check must
+    fail a build that leaves one K slice of one tile out."""
     E, Tk = MOE_E, MOE_TK
     dt = str(dtype)[6:]
     x = torch.randn(Tk, K, generator=gen, device="cuda").to(dtype)
@@ -509,6 +522,22 @@ def gmm_case(gmm, name, K, N, transpose_w, dtype, gen, starts, counts):
     if not (worst <= 1 and rel_l2 <= GMM_TOL[dt][2]):
         raise AssertionError(f"gmm {name} {dt}: worst {worst} of its "
                              f"elementwise bound, relative L2 {rel_l2}")
+    if not torch.equal(gmm.grouped_matmul(*args, transpose_w=transpose_w),
+                       got):
+        raise AssertionError(f"gmm {name} {dt}: a second call gave other "
+                             "bits")
+    fault = None
+    if fault_lib is not None:
+        with planted("grouped_matmul", fault_lib):
+            bad = gmm.grouped_matmul(*args, transpose_w=transpose_w)
+            torch.cuda.synchronize()
+        f_worst, f_l2 = elementwise_errors(bad, ref, GMM_TOL[dt])
+        if f_worst <= 1 and f_l2 <= GMM_TOL[dt][2]:
+            raise AssertionError(f"the gmm check passed the planted fault: "
+                                 f"{f_worst}, {f_l2}")
+        fault = dict(dropped="the last K slice of work item 0",
+                     err_over_bound=f_worst, rel_l2_err=f_l2,
+                     max_abs_err=max_err(bad, ref))
     offs = counts.cumsum(0).to(torch.int32)
     wl = w.transpose(1, 2) if transpose_w else w
     lib_ms, lib = (grouped_mm_ms(lambda: torch._grouped_mm(x, wl, offs=offs))
@@ -519,8 +548,9 @@ def gmm_case(gmm, name, K, N, transpose_w, dtype, gen, starts, counts):
     row = dict(name=f"gmm {name} {dt}", shape=dict(
         Tk=Tk, K=K, N=N, E=E, transpose_w=transpose_w,
         counts=counts.tolist()), max_abs_err=max_err(got, ref),
-        err_over_bound=worst, rel_l2_err=rel_l2,
+        err_over_bound=worst, rel_l2_err=rel_l2, reproducible=True,
         tol=dict(zip(("rtol", "c_rms", "rel_l2"), GMM_TOL[dt])),
+        planted_fault=fault,
         ms=time_ms(lambda: gmm.grouped_matmul(*args,
                                               transpose_w=transpose_w)),
         plain_ms=time_ms(lambda: gmm.grouped_matmul_plain(
@@ -533,8 +563,9 @@ def gmm_case(gmm, name, K, N, transpose_w, dtype, gen, starts, counts):
 
 def gmm_dw_case(gmm, name, M, N, dtype, gen, starts, counts, fault_lib):
     """K4b against its plain version at one llama_moe shape, x [Tk, M] and
-    dout [Tk, N]; for bf16 at the up-projection shape, the same check must
-    fail the planted fault (one row tile of expert 1 left out)."""
+    dout [Tk, N]. Two calls must give the same bits; for bf16 at the
+    up-projection shape, the same check must fail the planted fault (the
+    first slice of expert 1's first row chunk left out)."""
     E, Tk = MOE_E, MOE_TK
     dt = str(dtype)[6:]
     x = torch.randn(Tk, M, generator=gen, device="cuda").to(dtype)
@@ -545,9 +576,13 @@ def gmm_dw_case(gmm, name, M, N, dtype, gen, starts, counts, fault_lib):
     torch.cuda.synchronize()
     tol = BWD_TOL[dt]
     worst, rel_l2 = elementwise_errors(got, ref, tol)
-    if not (worst <= 1 and rel_l2 <= tol[2]) or got[0].any():
+    empty = [e for e, c in enumerate(counts.tolist()) if c == 0]
+    if not (worst <= 1 and rel_l2 <= tol[2]) or got[empty].any():
         raise AssertionError(f"gmm_dw {name} {dt}: worst {worst} of its "
                              f"elementwise bound, relative L2 {rel_l2}")
+    if not torch.equal(gmm.grouped_matmul_dw(*args), got):
+        raise AssertionError(f"gmm_dw {name} {dt}: a second call gave other "
+                             "bits")
     fault = None
     if fault_lib is not None:
         with planted("grouped_matmul", fault_lib):
@@ -557,7 +592,7 @@ def gmm_dw_case(gmm, name, M, N, dtype, gen, starts, counts, fault_lib):
         if f_worst <= 1 and f_l2 <= tol[2]:
             raise AssertionError(f"the dw check passed the planted fault: "
                                  f"{f_worst}, {f_l2}")
-        fault = dict(dropped="rows 0-31 of expert 1", err_over_bound=f_worst,
+        fault = dict(dropped="rows 0-63 of expert 1", err_over_bound=f_worst,
                      rel_l2_err=f_l2, max_abs_err=max_err(bad, ref))
     offs = counts.cumsum(0).to(torch.int32)
     # The library call rounds dw to bf16 (it takes no fp32 output here).
@@ -569,7 +604,7 @@ def gmm_dw_case(gmm, name, M, N, dtype, gen, starts, counts, fault_lib):
     row = dict(name=f"gmm_dw {name} {dt}", shape=dict(
         Tk=Tk, M=M, N=N, E=E, counts=counts.tolist()),
         max_abs_err=max_err(got, ref), err_over_bound=worst,
-        rel_l2_err=rel_l2,
+        rel_l2_err=rel_l2, reproducible=True,
         tol=dict(zip(("rtol", "c_rms", "rel_l2"), tol)), planted_fault=fault,
         ms=time_ms(lambda: gmm.grouped_matmul_dw(*args)),
         plain_ms=time_ms(lambda: gmm.grouped_matmul_dw_plain(*args), iters=5),
@@ -814,11 +849,13 @@ def main() -> int:
 
     # 2. Build every kernel from the checkout, one nvcc per source at once,
     # and beside them the planted-fault copies the checks must fail: of
-    # grouped_matmul.cu (the dw check), flash_fwd.cu (the kv_len check and
-    # the causal check) and fused_bn_matmul.cu (the BN-stats check).
+    # grouped_matmul.cu (the gmm and dw checks), flash_fwd.cu (the kv_len
+    # check and the causal check) and fused_bn_matmul.cu (the BN-stats
+    # check).
     fault_dir = os.path.join(_build.BUILD_DIR, "planted_fault")
     os.makedirs(fault_dir, exist_ok=True)
-    faults = {"gmm": ("grouped_matmul", DROPPED_ROWS),
+    faults = {"gmm_dw": ("grouped_matmul", DROPPED_ROWS),
+              "gmm": ("grouped_matmul", DROPPED_SLICE),
               "kv_len": ("flash_fwd", IGNORED_KV_LEN),
               "diagonal": ("flash_fwd", UNMASKED_DIAGONAL),
               "bn": ("fused_bn_matmul", DROPPED_PARTIAL)}
@@ -843,23 +880,29 @@ def main() -> int:
         if proc.returncode != 0:
             raise AssertionError(f"nvcc failed on a planted fault:\n"
                                  f"{fault_log}")
-    # The bf16 forward's and backward's wgmma kernels must not spill (a
-    # library built earlier, by the kernel tests, reports no log: not
-    # checked then).
+    # The wgmma kernels (the bf16 attention forward and backward, the
+    # grouped matmul and its dw) must not spill, nor serialise their wgmma
+    # (ptxas C7513). A library built earlier, by the kernel tests, reports
+    # no log: not checked then.
     spills = {}
-    for name, n_kernels in (("flash_fwd", 2), ("flash_bwd", 4)):
+    for name, n_kernels in (("flash_fwd", 2), ("flash_bwd", 4),
+                            ("grouped_matmul", 3)):
         spills[name] = wgmma_spills(built["logs"][name])
+        serialised = [ln for ln in built["logs"][name].splitlines()
+                      if "C7513" in ln]
         if built["logs"][name] and (len(spills[name]) != n_kernels
-                                    or any(spills[name].values())):
-            raise AssertionError(f"{name}'s wgmma kernels spill: "
-                                 f"{spills[name]}")
+                                    or any(spills[name].values())
+                                    or serialised):
+            raise AssertionError(f"{name}'s wgmma kernels spill or are "
+                                 f"serialised: {spills[name]} {serialised}")
     emit("build", seconds=built["seconds"],
          ptxas={name: [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln
                        or "Performance Loss" in ln]
                 for name, log in built["logs"].items()},
          flash_fwd_wgmma_spill_bytes=spills["flash_fwd"] or None,
-         flash_bwd_wgmma_spill_bytes=spills["flash_bwd"] or None)
+         flash_bwd_wgmma_spill_bytes=spills["flash_bwd"] or None,
+         grouped_matmul_wgmma_spill_bytes=spills["grouped_matmul"] or None)
 
     # 3. Each kernel against its plain version at the serving shapes.
     gen = torch.Generator(device="cuda")
@@ -910,20 +953,34 @@ def main() -> int:
 
     # The MoE kernels at the llama_moe shapes (kT = 16384 routed rows, d
     # 1024, f 2048), uneven routing: the up and down products, the
-    # backward's dx against w transposed, both weight gradients, the router.
+    # backward's dx against w transposed for each, both weight gradients,
+    # the router; bf16 also under the training step's balanced routing
+    # (kT / E rows an expert), and the up shapes fail the planted faults.
     starts, counts = moe_segments(MOE_TK, MOE_E)
+    balanced = segments_of([MOE_TK // MOE_E] * MOE_E)
     D, F = MOE_D, MOE_F
     for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
         for case in (("up", D, F, False), ("down", F, D, False),
-                     ("dx_up", F, D, True)):
-            row = gmm_case(gmm, *case, dtype, gen, starts, counts)
+                     ("dx_up", F, D, True), ("dx_down", D, F, True)):
+            row = gmm_case(gmm, *case, dtype, gen, starts, counts,
+                           fault_libs["gmm"] if case[0] == "up" and bf16
+                           else None)
             rows[row["name"]] = row
             emit("kernel_check", kernel="gmm", **row)
         for name, M, N in (("up", D, F), ("down", F, D)):
             row = gmm_dw_case(gmm, name, M, N, dtype, gen, starts, counts,
-                              fault_libs["gmm"] if (name == "up" and
-                                            dtype == torch.bfloat16)
+                              fault_libs["gmm_dw"] if name == "up" and bf16
                               else None)
+            rows[row["name"]] = row
+            emit("kernel_check", kernel="gmm_dw", **row)
+        if bf16:
+            row = gmm_case(gmm, "up_balanced", D, F, False, dtype, gen,
+                           *balanced)
+            rows[row["name"]] = row
+            emit("kernel_check", kernel="gmm", **row)
+            row = gmm_dw_case(gmm, "up_balanced", D, F, dtype, gen,
+                              *balanced, None)
             rows[row["name"]] = row
             emit("kernel_check", kernel="gmm_dw", **row)
         gc.collect()
@@ -1766,9 +1823,9 @@ def main() -> int:
                               f"{flash_py}:200", f"{flash_py}:241",
                               f"{flash_py}:601", f"{flash_py}:809"]),
         "gmm": dict(route="cuda", source=f"{PKG}/csrc/grouped_matmul.cu",
-                    replaces=f"{gmm_py}:128"),
+                    design="wgmma + TMA ring", replaces=f"{gmm_py}:128"),
         "gmm_dw": dict(route="cuda", source=f"{PKG}/csrc/grouped_matmul.cu",
-                       replaces=f"{gmm_py}:162"),
+                       design="wgmma + TMA ring", replaces=f"{gmm_py}:162"),
         "fused_router": dict(
             route="cuda", source=f"{PKG}/csrc/fused_router.cu",
             replaces="pytorch_distributed_training_example_tpu/ops/"

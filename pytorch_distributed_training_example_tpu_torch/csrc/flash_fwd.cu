@@ -474,19 +474,6 @@ struct FwdWork {
   }
 };
 
-// The work item of this block in round r: a snake over the blocks (left
-// to right, then right to left), so that heavy-first items even out.
-__device__ __forceinline__ int work_of(int r) {
-  const int g = gridDim.x, i = blockIdx.x;
-  return r * g + ((r & 1) ? g - 1 - i : i);
-}
-
-// One arrival a warp on a barrier counted in consumer warps.
-__device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
-}
-
 // The online softmax of one score tile (keys k0..k0 + kBN - 1) for the
 // thread's rows row[0], row[1] of the warpgroup starting at qw0: scores
 // masked only where the tile crosses the diagonal or kv_len, p =

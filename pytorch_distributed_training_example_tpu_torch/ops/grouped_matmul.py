@@ -152,11 +152,17 @@ def grouped_matmul_dw_plain(x, dout, group_starts, group_counts):
 
 @_build.cached("grouped_matmul")
 def _gmm_dw_fn():
-    fn = _build.library("grouped_matmul").pdtx_gmm_dw
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    """The dw kernel's entry and its workspace query (bytes for Tk, E, M,
+    N, dtype: the chunk plan, the split counters, the partial slots)."""
+    lib = _build.library("grouped_matmul")
+    fn = lib.pdtx_gmm_dw
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    workspace = lib.pdtx_gmm_dw_workspace
+    workspace.argtypes = [ctypes.c_int] * 5
+    workspace.restype = ctypes.c_longlong
+    return fn, workspace
 
 
 def _gmm_dw_cuda(x, dout, group_starts, group_counts):
@@ -165,12 +171,16 @@ def _gmm_dw_cuda(x, dout, group_starts, group_counts):
                          f"{tuple(dout.shape)} have other row counts")
     _check_cuda("grouped_matmul_dw", dict(x=x, dout=dout),
                 dict(group_starts=group_starts, group_counts=group_counts))
-    E, M, N = group_starts.shape[0], x.shape[1], dout.shape[1]
+    Tk, E, M, N = x.shape[0], group_starts.shape[0], x.shape[1], \
+        dout.shape[1]
+    fn, workspace = _gmm_dw_fn()
+    dtype = _KERNEL_DTYPES[x.dtype]
     dw = torch.empty((E, M, N), dtype=torch.float32, device=x.device)
+    ws = torch.empty(workspace(Tk, E, M, N, dtype), dtype=torch.uint8,
+                     device=x.device)
     with torch.cuda.device(x.device):
-        err = _gmm_dw_fn()(
-            _ptr(x), _ptr(dout), _ptr(group_starts), _ptr(group_counts),
-            _ptr(dw), E, M, N, _KERNEL_DTYPES[x.dtype], _stream(x.device))
+        err = fn(_ptr(x), _ptr(dout), _ptr(group_starts), _ptr(group_counts),
+                 _ptr(dw), _ptr(ws), Tk, E, M, N, dtype, _stream(x.device))
     _build.check(err, "grouped_matmul_dw")
     grouped_matmul_dw.launches += 1
     return dw

@@ -38,7 +38,8 @@ TRAINING_SLICE = ("core.optim", "core.precision", "core.train_loop",
                   "data.loader", "data.prefetch", "data.sampler",
                   "models.gpt2", "utils.logging", "utils.metrics")
 #: Modules of the MoE training slice, likewise.
-MOE_SLICE = ("ops.fused_router", "ops.grouped_matmul", "parallel.moe")
+MOE_SLICE = ("ops.fused_router", "ops.grouped_matmul", "parallel.moe",
+             "bench.grouped_matmul_bench")
 #: Modules of the ViT training slice, likewise.
 VIT_SLICE = ("models.vit", "ops.attention", "ops.flash_attention",
              "bridge")

@@ -40,6 +40,7 @@ def _source(name: str) -> str:
 #: (where the fault is defined, its name, the source it edits).
 PLANTED_FAULTS = [
     ("chip_smoke", "DROPPED_ROWS", "grouped_matmul"),
+    ("chip_smoke", "DROPPED_SLICE", "grouped_matmul"),
     ("chip_smoke", "IGNORED_KV_LEN", "flash_fwd"),
     ("chip_smoke", "UNMASKED_DIAGONAL", "flash_fwd"),
     ("chip_smoke", "DROPPED_PARTIAL", "fused_bn_matmul"),
@@ -48,6 +49,7 @@ PLANTED_FAULTS = [
     ("kernel_tests", "_DROPPED_TILES:dq", "flash_bwd"),
     ("kernel_tests", "_DROPPED_TILES:dkv", "flash_bwd"),
     ("kernel_tests", "_DROPPED_ROWS", "grouped_matmul"),
+    ("kernel_tests", "_DROPPED_SLICE", "grouped_matmul"),
     ("kernel_tests", "_DROPPED_PARTIAL", "fused_bn_matmul"),
 ]
 
@@ -81,6 +83,8 @@ def test_every_planted_fault_is_listed():
                 assert (where, attr) in listed, (where, attr)
     for attr in ("IGNORED_KV_LEN", "UNMASKED_DIAGONAL"):
         assert getattr(SMOKE, attr) == getattr(KERNEL_TESTS, attr)
+    for attr in ("DROPPED_ROWS", "DROPPED_SLICE"):
+        assert getattr(SMOKE, attr) == getattr(KERNEL_TESTS, "_" + attr)
 
 
 @pytest.mark.parametrize("probe", range(len(flash_bwd_phases._PROBES)))

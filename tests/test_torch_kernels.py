@@ -42,11 +42,16 @@ the padded path are held as the other path grads.
 The MoE kernels, at the llama_moe shapes with uneven routing (one expert
 empty, one holding over half the rows and ending mid-tile): the grouped
 matmul's outputs in the same elementwise form (``GMM_TOL``: bf16 one ulp,
-2^-7 |ref|, twice over; fp32 1e-4 |ref| + 1e-5 rms), its fp32 weight
-gradient in the backward's (``GRAD_TOL``), which fails a planted kernel
-that leaves one row tile of one expert out
+2^-7 |ref|, twice over; fp32 1e-4 |ref| + 1e-5 rms), which fails a planted
+kernel that leaves one K slice of one tile out
+(``test_gmm_check_catches_a_dropped_k_slice``), its fp32 weight gradient
+in the backward's (``GRAD_TOL``), which fails a planted kernel that leaves
+one slice of one expert's rows out
 (``test_gmm_dw_check_catches_a_dropped_row_tile``); grads through
-``grouped_ffn`` in ``PATH_GRAD_TOL``'s. The fused router's expert choices
+``grouped_ffn`` in ``PATH_GRAD_TOL``'s. Both bf16 kernels give the same
+bits call to call, each gmm row keeps its bits wherever it falls in its
+tile, and edge routings (one expert holding every row, segments of 1-7
+rows, 37 rows, one expert, dw's split of a heavy expert) match. The fused router's expert choices
 equal the plain version's except on rows that are near ties (the plain
 version's two probabilities at the first differing rank within 4 ulp), its
 gates, logsumexp and mean probabilities within 1e-6.
@@ -673,29 +678,38 @@ def test_gmm_dw_kernel_matches_plain(cuda_device, dtype, M, N):
     assert _elementwise_close(got, ref, GRAD_TOL[dtype])
 
 
-#: The planted fault: the dw kernel leaves out the first 32-row tile of
-#: expert 1's segment.
-_DROPPED_ROWS = ("  const int rb = starts[e];\n",
-                 "  const int rb = starts[e] + (e == 1 ? kBK : 0);\n")
+#: The planted faults. dw: the plan leaves the first 64-row slice of expert
+#: 1's first row chunk out. gmm: work item 0 (the first row tile's first
+#: column tile) leaves its last 64-deep K slice out.
+_DROPPED_ROWS = (
+    "      const int k0 = start[e] + j * s;\n",
+    "      const int k0 = start[e] + j * s + (e == 1 && j == 0 ? kSliceK : 0);\n")
+_DROPPED_SLICE = ("    n_k = (a.K + kSliceK - 1) / kSliceK;\n",
+                  "    n_k = (a.K + kSliceK - 1) / kSliceK - (i == 0);\n")
 
 
-@pytest.mark.cuda
-def test_gmm_dw_check_catches_a_dropped_row_tile(cuda_device, tmp_path):
-    """The dw check fails a kernel that leaves one row tile of one expert
-    out of its sum, at the llama_moe up-projection shape, where it passes
-    the kernel as built."""
+def _planted_gmm(tmp_path, fault, name):
+    """A build of grouped_matmul.cu with the fault's line replaced."""
     with open(os.path.join(_build.CSRC_DIR, "grouped_matmul.cu")) as f:
         source = f.read()
-    old, new = _DROPPED_ROWS
+    old, new = fault
     assert source.count(old) == 1
-    src = tmp_path / "grouped_matmul_fault.cu"
+    src = tmp_path / f"grouped_matmul_{name}.cu"
     src.write_text(source.replace(old, new))
-    lib = tmp_path / "libgmm_fault.so"
+    lib = tmp_path / f"libgmm_{name}.so"
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
                            _build.CSRC_DIR, "-o", str(lib), str(src)],
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    return ctypes.CDLL(str(lib))
 
+
+@pytest.mark.cuda
+def test_gmm_dw_check_catches_a_dropped_row_tile(cuda_device, tmp_path):
+    """The dw check fails a kernel that leaves the first 64-row slice of
+    one expert's first row chunk out of its sum, at the llama_moe
+    up-projection shape, where it passes the kernel as built."""
+    fault = _planted_gmm(tmp_path, _DROPPED_ROWS, "rows")
     starts, counts = _moe_segments(16384, 8, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     x = torch.randn(16384, 1024, generator=gen, device=cuda_device).to(
@@ -706,9 +720,134 @@ def test_gmm_dw_check_catches_a_dropped_row_tile(cuda_device, tmp_path):
     tol = GRAD_TOL[torch.bfloat16]
     assert _elementwise_close(gmm.grouped_matmul_dw(x, dout, starts, counts),
                               ref, tol)
-    with _build.using("grouped_matmul", ctypes.CDLL(str(lib))):
+    with _build.using("grouped_matmul", fault):
         got = gmm.grouped_matmul_dw(x, dout, starts, counts)
     assert not _elementwise_close(got, ref, tol)
+
+
+@pytest.mark.cuda
+def test_gmm_check_catches_a_dropped_k_slice(cuda_device, tmp_path):
+    """The gmm check fails a kernel that leaves one 64-deep K slice of one
+    tile out, at the llama_moe up and dx_down shapes (w read as stored and
+    transposed), where it passes the kernel as built."""
+    fault = _planted_gmm(tmp_path, _DROPPED_SLICE, "slice")
+    starts, counts = _moe_segments(16384, 8, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(16384, 1024, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    tol = GMM_TOL[torch.bfloat16]
+    for transpose_w in (False, True):
+        w = (torch.randn(8, 1024, 2048, generator=gen, device=cuda_device)
+             / 32).to(torch.bfloat16)
+        if transpose_w:
+            w = w.transpose(1, 2).contiguous()
+        args = (x, w, starts, counts)
+        ref = gmm.grouped_matmul_plain(*args, transpose_w=transpose_w)
+        assert _elementwise_close(
+            gmm.grouped_matmul(*args, transpose_w=transpose_w), ref, tol)
+        with _build.using("grouped_matmul", fault):
+            got = gmm.grouped_matmul(*args, transpose_w=transpose_w)
+        assert not _elementwise_close(got, ref, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gmm", "gmm_transpose_w", "gmm_dw"])
+def test_gmm_kernels_are_bitwise_reproducible(cuda_device, kernel):
+    """No float atomics: two calls give the same bits, the dw one with its
+    heavy expert split into row chunks whose partials are summed."""
+    starts, counts = _moe_segments(16384, 8, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(16384, 1024, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    if kernel == "gmm_dw":
+        dout = torch.randn(16384, 2048, generator=gen, device=cuda_device).to(
+            torch.bfloat16)
+        run = lambda: gmm.grouped_matmul_dw(x, dout, starts, counts)
+    else:
+        transpose_w = kernel == "gmm_transpose_w"
+        shape = (8, 2048, 1024) if transpose_w else (8, 1024, 2048)
+        w = (torch.randn(*shape, generator=gen, device=cuda_device) / 32).to(
+            torch.bfloat16)
+        run = lambda: gmm.grouped_matmul(x, w, starts, counts,
+                                         transpose_w=transpose_w)
+    assert torch.equal(run(), run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_w", [False, True])
+def test_gmm_rows_do_not_depend_on_their_tile_offset(cuda_device,
+                                                    transpose_w):
+    """Each output row depends only on its row and its expert's weights,
+    bitwise: 37 rows put in front of expert 2's segment (and taken from
+    the end of expert 0's, so Tk stays) move its rows to other offsets in
+    their tiles, and their outputs keep their bits."""
+    E, K, N = 4, 256, 520
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    rows = [torch.randn(n, K, generator=gen, device=cuda_device).to(
+        torch.bfloat16) for n in (300, 200, 400, 124, 37)]
+    shape = (E, N, K) if transpose_w else (E, K, N)
+    w = (torch.randn(*shape, generator=gen, device=cuda_device) / 16).to(
+        torch.bfloat16)
+
+    def run(segments):
+        counts = [len(t) for t in segments]
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        out = gmm.grouped_matmul(
+            torch.cat(segments), w,
+            torch.tensor(starts, dtype=torch.int32, device=cuda_device),
+            torch.tensor(counts, dtype=torch.int32, device=cuda_device),
+            transpose_w=transpose_w)
+        return out.split(counts)
+
+    x0, x1, x2, x3, extra = rows
+    a = run([x0, x1, x2, x3])
+    b = run([x0[:263], x1, torch.cat([extra, x2]), x3])
+    assert torch.equal(a[2], b[2][37:])
+    assert torch.equal(a[0][:263], b[0]) and torch.equal(a[3], b[3])
+
+
+#: Edge routings (counts per expert): every row in one expert, segments of
+#: 1-7 rows, 37 rows in all, one expert, and an expert heavy enough that
+#: dw splits it into row chunks.
+EDGE_ROUTINGS = {"one_expert": [0, 0, 3000, 0],
+                 "tiny_segments": [1, 2, 3, 4, 5, 6, 7, 100],
+                 "tk_37": [20, 0, 17],
+                 "one_of_one": [515],
+                 "dw_split": [9000, 100, 0, 200]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("routing", list(EDGE_ROUTINGS))
+def test_gmm_kernels_on_edge_routings(cuda_device, routing):
+    """gmm (w as stored and transposed) and dw against their plain versions
+    in bf16 at K 136 and N 264 (a ragged last K slice and column tile),
+    reproducible, and zeros for an empty expert's dw."""
+    counts = EDGE_ROUTINGS[routing]
+    E, Tk, K, N = len(counts), sum(counts), 136, 264
+    starts = torch.tensor(np.concatenate([[0], np.cumsum(counts)[:-1]]),
+                          dtype=torch.int32, device=cuda_device)
+    counts_t = torch.tensor(counts, dtype=torch.int32, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn(Tk, K, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    dout = torch.randn(Tk, N, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    for transpose_w in (False, True):
+        shape = (E, N, K) if transpose_w else (E, K, N)
+        w = (torch.randn(*shape, generator=gen, device=cuda_device) / 12).to(
+            torch.bfloat16)
+        args = (x, w, starts, counts_t)
+        got = gmm.grouped_matmul(*args, transpose_w=transpose_w)
+        assert torch.equal(got, gmm.grouped_matmul(*args,
+                                                   transpose_w=transpose_w))
+        assert _elementwise_close(got, gmm.grouped_matmul_plain(
+            *args, transpose_w=transpose_w), GMM_TOL[torch.bfloat16])
+    dw = gmm.grouped_matmul_dw(x, dout, starts, counts_t)
+    assert torch.equal(dw, gmm.grouped_matmul_dw(x, dout, starts, counts_t))
+    assert not any(dw[e].any() for e, c in enumerate(counts) if c == 0)
+    assert _elementwise_close(
+        dw, gmm.grouped_matmul_dw_plain(x, dout, starts, counts_t),
+        GRAD_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
