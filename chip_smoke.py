@@ -64,8 +64,13 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # rounding that flips moves one term of a sum by an ulp.
 BWD_TOL = {"bfloat16": (2e-2, 2.0 ** -5, 5e-3), "float32": (1e-4, 1e-4, 1e-5)}
 LSE_TOL = 1e-3
+# Paged decode outputs, relative L2 error: bf16 rounds the probabilities
+# before P V and the output (2^-9 relative each, ~2e-3 together); fp32 sums
+# in another order.
+PAGED_L2 = {"bfloat16": 5e-3, "float32": 1e-5}
 LAYERS = 32        # llama3_8b: each kernel launches once per layer per forward
 DECODE_BUCKETS = (1, 2, 4, 8)   # the engine's default, warmed once each
+ENGINE_TABLE_WIDTH = 255   # the page table's columns at --serve-num-pages 256
 GPT2_LAYERS = 12   # gpt2_124m: one flash fwd and bwd per layer per microbatch
 GRAD_ACCUM = 16    # the preset's global batch of 256 as 16 x 16 sequences
 TRAIN_STEPS = 4
@@ -125,6 +130,11 @@ BN_STATS_TOL = 1e-5
 DROPPED_PARTIAL = (
     "  const int p0 = threadIdx.y;\n",
     "  const int p0 = threadIdx.y + (threadIdx.y == 1 ? 32 : 0);\n")
+# The planted fault of the paged decode check: the combine leaves the last
+# split of each (request, KV head) out.
+DROPPED_SPLIT = (
+    "  const int n_merge = n_live;\n",
+    "  const int n_merge = n_live - 1;  // planted fault: last split dropped\n")
 # The ResNet-50 training command (ROADMAP slice 5), logged every step, the
 # preset's warmup cut to its 4 steps, the epoch-end eval off (the profile
 # phase runs it); 4 microbatches of 256 images.
@@ -147,18 +157,23 @@ def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
                                        else "operations")
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, clean_l2: bool = False) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed alone
     with CUDA events. Before each, a 1 GB write evicts the 50 MB L2 (the
     serving loop finds a layer's cache cold) and keeps the card busy for
     ~0.3 ms, longer than the host needs to enqueue ``fn``, so the events
-    time the device work and not the Python in front of it."""
-    flush = torch.empty(256 << 20, dtype=torch.float32, device="cuda")
+    time the device work and not the Python in front of it. The write
+    leaves L2 full of dirty lines, which ``fn``'s reads write back as they
+    evict them; with ``clean_l2`` the flush reads the 1 GB instead."""
+    flush = torch.zeros(256 << 20, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
-        flush.zero_()
+        if clean_l2:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -193,13 +208,32 @@ def grad_errors(got, ref, dt: str) -> tuple[float, float]:
     return worst, rel_l2
 
 
-def paged_decode_case(flash, B, positions, dtype, gen):
-    """Random pool and scattered page tables at llama3_8b's decode shapes."""
-    H, Hkv, D, ps, P = 32, 8, 128, 16, 640
+def rel_l2(got, ref) -> float:
+    g, r = got.float(), ref.float()
+    return float((g - r).norm() / r.norm().clamp_min(
+        torch.finfo(torch.float32).tiny))
+
+
+def paged_decode_case(flash, B, positions, dtype, gen, label="", P=640,
+                      width=None, fault_lib=None):
+    """Random pool and scattered page tables at llama3_8b's decode shapes.
+    The table is as wide as the longest request needs, or ``width``
+    columns (the serving engine's 255), the entries past a request's
+    pages then holding other requests' pages (in range, so the gather-based
+    plain version reads them; the kernel must never attend to them). The
+    output is held to ``TOL`` and to ``PAGED_L2`` (at long positions the
+    outputs are small, so the max error alone does not see a dropped
+    split); bf16 is called twice and must give the same bits; with
+    ``fault_lib`` the planted-fault build must fail the check. The row is
+    timed twice: behind the usual dirty flush and behind a clean one
+    (``ms_clean_l2``)."""
+    H, Hkv, D, ps = 32, 8, 128, 16
+    dt = str(dtype)[6:]
     q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
     k_pages = torch.randn(P, ps, Hkv, D, generator=gen, device="cuda").to(dtype)
     v_pages = torch.randn(P, ps, Hkv, D, generator=gen, device="cuda").to(dtype)
-    width = max(positions) // ps + 1
+    tight = max(positions) // ps + 1
+    width = width or tight
     perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
     table = torch.zeros(B, width, dtype=torch.int32, device="cuda")
     used = 0
@@ -207,26 +241,52 @@ def paged_decode_case(flash, B, positions, dtype, gen):
         n = pos // ps + 1
         table[b, :n] = perm[used:used + n].to(torch.int32)
         used += n
+    if width > tight:
+        for b, pos in enumerate(positions):
+            n = pos // ps + 1
+            others = perm[torch.randint(used, (width - n,), generator=gen,
+                                        device="cuda")]
+            table[b, n:] = others.to(torch.int32)
     pos_t = torch.tensor(positions, dtype=torch.int32, device="cuda")
     args = (q, k_pages, v_pages, table, pos_t)
     out = flash.paged_decode_attention(*args)
+    again = flash.paged_decode_attention(*args)
     ref = flash.paged_decode_attention(*args, impl="xla")
     torch.cuda.synchronize()
-    name = f"paged_decode B={B} {str(dtype)[6:]}"
-    err = max_err(out, ref)
-    check(name, err, TOL[str(dtype)[6:]])
+    name = " ".join(x for x in (f"paged_decode B={B}", label, dt) if x)
+    err, l2 = max_err(out, ref), rel_l2(out, ref)
+    check(name, err, TOL[dt])
+    if not l2 <= PAGED_L2[dt]:
+        raise AssertionError(f"{name}: relative L2 error {l2} exceeds "
+                             f"{PAGED_L2[dt]}")
+    reproducible = bool(torch.equal(out, again))
+    if dtype == torch.bfloat16 and not reproducible:
+        raise AssertionError(f"{name}: two calls differ")
     live = sum(p + 1 for p in positions)
     item = q.element_size()
     nbytes = (2 * live * Hkv * D + 2 * B * H * D) * item \
         + 4 * (B + table.numel())
     ops = 4 * live * H * D
-    row = dict(name=name, positions=positions, max_abs_err=err,
-               tol=TOL[str(dtype)[6:]],
+    row = dict(name=name, positions=positions, table_width=width,
+               max_abs_err=err, rel_l2=l2, tol=TOL[dt], l2_tol=PAGED_L2[dt],
+               reproducible=reproducible,
                ms=time_ms(lambda: flash.paged_decode_attention(*args)),
+               ms_clean_l2=time_ms(
+                   lambda: flash.paged_decode_attention(*args), clean_l2=True),
                plain_ms=time_ms(
                    lambda: flash.paged_decode_attention(*args, impl="xla")),
                library_ms=None)
-    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, str(dtype)[6:])
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, dt)
+    if fault_lib is not None:
+        with planted("paged_decode", fault_lib):
+            bad = flash.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        row["planted_fault"] = dict(max_abs_err=max_err(bad, ref),
+                                    rel_l2=rel_l2(bad, ref))
+        if max_err(bad, ref) <= TOL[dt] and rel_l2(bad, ref) <= PAGED_L2[dt]:
+            raise AssertionError(f"{name}: the planted fault (a dropped "
+                                 f"split) passed the check: "
+                                 f"{row['planted_fault']}")
     return row
 
 
@@ -442,15 +502,15 @@ def flash_bwd_case(flash, name, B, S, H, Hkv, D, causal, kv_len, dtype,
     return row
 
 
-def wgmma_spills(log: str) -> dict:
-    """Spill bytes (stores + loads) of each wgmma kernel in a ``-Xptxas -v``
-    log, by mangled name."""
+def kernel_spills(log: str, marker: str) -> dict:
+    """Spill bytes (stores + loads) of each kernel whose mangled name holds
+    ``marker`` in a ``-Xptxas -v`` log, by mangled name."""
     spills, name = {}, None
     for ln in log.splitlines():
         if "Function properties for" in ln:
             name = ln.split("Function properties for")[-1].strip()
         elif name and "spill stores" in ln:
-            if "wgmma" in name:
+            if marker in name:
                 nums = [int(w) for w in ln.replace(",", " ").split()
                         if w.isdigit()]
                 spills[name] = nums[1] + nums[2]
@@ -758,7 +818,10 @@ def device_profile(prof, wall_s: float, top: int = 8) -> dict:
     rows = sorted(by_name.items(), key=lambda r: -r[1])
     return {"wall_ms": 1e3 * wall_s, "device_ms": device_ms,
             "busy_share": device_ms / (1e3 * wall_s),
-            # K1f/K1o's kernel and K2's three (delta pre-pass, dq, dk/dv)
+            # K6's kernels (the split kernel and its combine), K1f/K1o's
+            # kernel and K2's three (delta pre-pass, dq, dk/dv)
+            "paged_decode_ms": sum(ms for k, ms in by_name.items()
+                                   if "paged_decode" in k),
             "flash_fwd_ms": sum(ms for k, ms in by_name.items()
                                 if "flash_fwd_" in k),
             "flash_bwd_ms": sum(ms for k, ms in by_name.items()
@@ -850,15 +913,16 @@ def main() -> int:
     # 2. Build every kernel from the checkout, one nvcc per source at once,
     # and beside them the planted-fault copies the checks must fail: of
     # grouped_matmul.cu (the gmm and dw checks), flash_fwd.cu (the kv_len
-    # check and the causal check) and fused_bn_matmul.cu (the BN-stats
-    # check).
+    # check and the causal check), fused_bn_matmul.cu (the BN-stats check)
+    # and paged_decode.cu (the B=1 long paged decode check).
     fault_dir = os.path.join(_build.BUILD_DIR, "planted_fault")
     os.makedirs(fault_dir, exist_ok=True)
     faults = {"gmm_dw": ("grouped_matmul", DROPPED_ROWS),
               "gmm": ("grouped_matmul", DROPPED_SLICE),
               "kv_len": ("flash_fwd", IGNORED_KV_LEN),
               "diagonal": ("flash_fwd", UNMASKED_DIAGONAL),
-              "bn": ("fused_bn_matmul", DROPPED_PARTIAL)}
+              "bn": ("fused_bn_matmul", DROPPED_PARTIAL),
+              "split": ("paged_decode", DROPPED_SPLIT)}
     fault_libs, fault_procs = {}, []
     for key, (name, (old, new)) in faults.items():
         with open(os.path.join(_build.CSRC_DIR, f"{name}.cu")) as f:
@@ -881,19 +945,22 @@ def main() -> int:
             raise AssertionError(f"nvcc failed on a planted fault:\n"
                                  f"{fault_log}")
     # The wgmma kernels (the bf16 attention forward and backward, the
-    # grouped matmul and its dw) must not spill, nor serialise their wgmma
-    # (ptxas C7513). A library built earlier, by the kernel tests, reports
-    # no log: not checked then.
+    # grouped matmul and its dw) and the split paged decode kernels (bf16 at
+    # head_dim 64 and 128, ring depths 1-4) must not spill, nor serialise
+    # their wgmma (ptxas C7513). A library built earlier, by the kernel
+    # tests, reports no log: not checked then.
     spills = {}
-    for name, n_kernels in (("flash_fwd", 2), ("flash_bwd", 4),
-                            ("grouped_matmul", 3)):
-        spills[name] = wgmma_spills(built["logs"][name])
+    for name, n_kernels, marker in (("flash_fwd", 2, "wgmma"),
+                                    ("flash_bwd", 4, "wgmma"),
+                                    ("grouped_matmul", 3, "wgmma"),
+                                    ("paged_decode", 8, "paged_decode_mma")):
+        spills[name] = kernel_spills(built["logs"][name], marker)
         serialised = [ln for ln in built["logs"][name].splitlines()
                       if "C7513" in ln]
         if built["logs"][name] and (len(spills[name]) != n_kernels
                                     or any(spills[name].values())
                                     or serialised):
-            raise AssertionError(f"{name}'s wgmma kernels spill or are "
+            raise AssertionError(f"{name}'s {marker} kernels spill or are "
                                  f"serialised: {spills[name]} {serialised}")
     emit("build", seconds=built["seconds"],
          ptxas={name: [ln.strip() for ln in log.splitlines()
@@ -902,18 +969,32 @@ def main() -> int:
                 for name, log in built["logs"].items()},
          flash_fwd_wgmma_spill_bytes=spills["flash_fwd"] or None,
          flash_bwd_wgmma_spill_bytes=spills["flash_bwd"] or None,
-         grouped_matmul_wgmma_spill_bytes=spills["grouped_matmul"] or None)
+         grouped_matmul_wgmma_spill_bytes=spills["grouped_matmul"] or None,
+         paged_decode_mma_spill_bytes=spills["paged_decode"] or None)
 
     # 3. Each kernel against its plain version at the serving shapes.
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for B, positions in ((1, [1000]),
-                             (8, [0, 15, 16, 47, 300, 511, 767, 1023])):
-            row = paged_decode_case(flash, B, positions, dtype, gen)
+        # Paged decode at llama3_8b's decode shape: tight tables at B=1 and
+        # B=8; in bf16 also B=8 at the serving engine's table width (255
+        # columns), B=1 at llama3_8b's full context and B=8 at 2048 tokens
+        # each (a pool of 1025 pages).
+        b8 = [0, 15, 16, 47, 300, 511, 767, 1023]
+        cases = [(1, [1000], "", 640, None), (8, b8, "", 640, None)]
+        if dtype == torch.bfloat16:
+            cases += [(8, b8, "engine_width", 640, ENGINE_TABLE_WIDTH),
+                      (1, [8191], "long", 1025, None),
+                      (8, [2047] * 8, "long", 1025, None)]
+        for B, positions, label, P, width in cases:
+            row = paged_decode_case(
+                flash, B, positions, dtype, gen, label, P, width,
+                fault_libs["split"] if label == "long" and B == 1 else None)
             rows[row["name"]] = row
             emit("kernel_check", kernel="paged_decode", **row)
+        gc.collect()
+        torch.cuda.empty_cache()
         # The causal forward at llama3_8b's prefill shapes, and at the
         # training microbatches of gpt2_124m and llama_moe; bf16 at gpt2's
         # also fails the planted fault. bf16 at head_dim 256 (no model's)
@@ -1089,7 +1170,8 @@ def main() -> int:
     prof = serve_engine(model, engine_lib, long_prompt_requests(
         engine_lib, 1, lens, 16, model.vocab_size), profile=True)[3]
     emit("profile_long_prompts", unprofiled_wall_ms=1e3 * wall,
-         busy_share=prof["device_ms"] / (1e3 * wall), profiled=prof)
+         busy_share=prof["device_ms"] / (1e3 * wall),
+         paged_decode_ms=prof["paged_decode_ms"], profiled=prof)
     del model, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -1813,6 +1895,7 @@ def main() -> int:
     meta = {
         "paged_decode": dict(route="cuda",
                              source=f"{PKG}/csrc/paged_decode.cu",
+                             design="split-KV + TMA ring + mma.sync",
                              replaces=f"{flash_py}:1037"),
         "flash_fwd": dict(route="cuda", source=f"{PKG}/csrc/flash_fwd.cu",
                           design="wgmma + TMA ring",

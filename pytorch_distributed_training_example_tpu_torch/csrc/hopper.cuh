@@ -537,12 +537,6 @@ __device__ __forceinline__ uint32_t opaque(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Round an m64nN accumulator to bf16 A fragments, one per K step of 16.
 template <int N>
 __device__ __forceinline__ void to_a_frags(const float (&c)[N / 2],

@@ -1,7 +1,8 @@
 // Helpers shared by the tensor-core kernels (flash_fwd.cu, flash_bwd.cu,
-// grouped_matmul.cu, fused_bn_matmul.cu): dtype conversion, 16-byte tile
-// staging into shared memory (plain and cp.async), and the mma.sync m16n8k16
-// bf16 fragments of the FlashAttention-2 register scheme.
+// grouped_matmul.cu, fused_bn_matmul.cu, paged_decode.cu): dtype
+// conversion, 16-byte tile staging into shared memory (plain and cp.async),
+// ex2, and the mma.sync m16n8k16 bf16 fragments of the FlashAttention-2
+// register scheme.
 //
 // Fragment layout of one 16x8x16 product (PTX ISA, "mma.m16n8k16"), with
 // gid = lane / 4 and tig = lane % 4:
@@ -88,6 +89,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -95,6 +102,16 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// An 8x8 bf16 matrix in the fragment layout (lane l holds row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1), transposed in registers.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
 }
 
 // c += a b for one 16x8x16 bf16 tile, fp32 accumulators.
@@ -107,6 +124,19 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory as stored, lanes 8j..8j+7
+// addressing the rows of matrix j: over a row-major [m][k] tile they are
+// the A fragment of a 16x8x16 product (matrices: rows 0-7 and 8-15 at k
+// 0-7, then at k 8-15).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // Four 8x8 bf16 matrices from shared memory, transposed: the B operands of

@@ -35,6 +35,7 @@ PyTorch, as the JAX package leaves it to XLA.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -348,10 +349,56 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table,
                                    positions[:, None])[:, 0]
 
 
+#: The split planner's aims for the bf16 kernel: splits of 128 to 384
+#: tokens, and about two blocks an SM when the table is full to its width
+#: (a block's rings take 64 KB, so three fit an SM: a full table runs as
+#: one even wave).
+SPLIT_MIN_TOKENS = 128
+SPLIT_MAX_TOKENS = 384
+SPLIT_BLOCKS_PER_SM = 2
+
+
+def _paged_decode_splits(B: int, Hkv: int, max_pages: int, page_size: int,
+                         sm_count: int) -> tuple[int, int]:
+    """``(pages_per_split, n_splits)`` of the bf16 paged decode kernel, from
+    sizes the host knows: the positions stay on the card, so the split is
+    sized from the table's width, and the kernel's blocks past a request's
+    position return at once. Splits are whole pages, clamped to
+    ``SPLIT_MIN_TOKENS``-``SPLIT_MAX_TOKENS`` tokens, so a table far wider
+    than its positions (the serving engine's) neither starves the card at
+    B=1 nor gives B=8 a few long splits; ``n_splits * pages_per_split >=
+    max_pages``."""
+    lo = max(1, -(-SPLIT_MIN_TOKENS // page_size))
+    hi = max(lo, SPLIT_MAX_TOKENS // page_size)
+    splits_wanted = max(1, SPLIT_BLOCKS_PER_SM * sm_count // (B * Hkv))
+    pages = min(max(-(-max_pages // splits_wanted), lo), hi)
+    return pages, max(1, -(-max_pages // pages))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: Per (device, stream), the split kernel's int32 arrival counters, one a
+#: (request, KV head). Zeroed once; the kernel's last block of a (request,
+#: KV head) resets its counter, so they are zero between calls.
+_decode_counters: dict = {}
+
+
+def _paged_decode_counters(device: torch.device, n: int) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    counters = _decode_counters.get(key)
+    if counters is None or counters.numel() < n:
+        counters = torch.zeros(n, dtype=torch.int32, device=device)
+        _decode_counters[key] = counters
+    return counters
+
+
 @_build.cached("paged_decode")
 def _paged_decode_fn():
     fn = _build.library("paged_decode").pdtx_paged_decode
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -377,11 +424,21 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, positions):
     _check_cuda_args("paged_decode_attention",
                      dict(q=q, page_table=page_table, positions=positions))
     out = torch.empty_like(q)
+    # The bf16 kernel's split plan, its fp32 partial states [B, Hkv,
+    # n_splits, G * D + 32] and its arrival counters (the other routes of
+    # the C entry read neither).
+    max_pages = page_table.shape[1]
+    pages, n_splits = _paged_decode_splits(B, Hkv, max_pages, page_size,
+                                           _sm_count(q.device.index))
+    workspace = torch.empty(B * Hkv * n_splits * (H // Hkv * D + 32),
+                            dtype=torch.float32, device=q.device)
+    counters = _paged_decode_counters(q.device, B * Hkv)
     with torch.cuda.device(q.device):
         err = _paged_decode_fn()(
             _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_table),
-            _ptr(positions), _ptr(out), B, H, Hkv, D, page_size,
-            page_table.shape[1], 1.0 / math.sqrt(D), _KERNEL_DTYPES[q.dtype],
+            _ptr(positions), _ptr(out), _ptr(workspace), _ptr(counters), B,
+            H, Hkv, D, k_pages.shape[0], page_size, max_pages, pages,
+            n_splits, 1.0 / math.sqrt(D), _KERNEL_DTYPES[q.dtype],
             _stream(q.device))
     _build.check(err, "paged_decode")
     paged_decode_attention.launches += 1
@@ -403,7 +460,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, positions,
 
     ``impl``: "auto" launches ``csrc/paged_decode.cu`` for CUDA tensors and
     takes the plain version for CPU tensors; "xla" is the gather-based plain
-    version on any device (the JAX package's "xla").
+    version on any device (the JAX package's "xla"). The kernel reads
+    ``positions`` and the page table on the card only: no host sync.
     """
     B, H, D = q.shape
     num_kv_heads = k_pages.shape[2]

@@ -44,6 +44,7 @@ PLANTED_FAULTS = [
     ("chip_smoke", "IGNORED_KV_LEN", "flash_fwd"),
     ("chip_smoke", "UNMASKED_DIAGONAL", "flash_fwd"),
     ("chip_smoke", "DROPPED_PARTIAL", "fused_bn_matmul"),
+    ("chip_smoke", "DROPPED_SPLIT", "paged_decode"),
     ("kernel_tests", "IGNORED_KV_LEN", "flash_fwd"),
     ("kernel_tests", "UNMASKED_DIAGONAL", "flash_fwd"),
     ("kernel_tests", "_DROPPED_TILES:dq", "flash_bwd"),
@@ -51,6 +52,7 @@ PLANTED_FAULTS = [
     ("kernel_tests", "_DROPPED_ROWS", "grouped_matmul"),
     ("kernel_tests", "_DROPPED_SLICE", "grouped_matmul"),
     ("kernel_tests", "_DROPPED_PARTIAL", "fused_bn_matmul"),
+    ("kernel_tests", "_DROPPED_SPLIT", "paged_decode"),
 ]
 
 
@@ -83,7 +85,7 @@ def test_every_planted_fault_is_listed():
                 assert (where, attr) in listed, (where, attr)
     for attr in ("IGNORED_KV_LEN", "UNMASKED_DIAGONAL"):
         assert getattr(SMOKE, attr) == getattr(KERNEL_TESTS, attr)
-    for attr in ("DROPPED_ROWS", "DROPPED_SLICE"):
+    for attr in ("DROPPED_ROWS", "DROPPED_SLICE", "DROPPED_SPLIT"):
         assert getattr(SMOKE, attr) == getattr(KERNEL_TESTS, "_" + attr)
 
 

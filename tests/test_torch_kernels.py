@@ -23,6 +23,16 @@ different product to bf16 (dp, the grad of its bf16 probabilities, where
 the kernel rounds ds): one more rounding of every term, so c is 2^-3 and
 the L2 bound 1e-2 there (``PATH_GRAD_TOL``).
 
+The paged decode kernel is held at page edges, half and all of
+llama3_8b's context (positions 4095 and 8191), G in {1, 4, 8}, and at the
+serving engine's table width (255 columns, the unused ones holding other
+requests' pages), to ``TOL`` and to a relative L2 bound (``PAGED_L2``:
+bf16 5e-3, fp32 1e-5; at long positions the outputs are small, so the max
+error alone does not see a lost split); two bf16 calls give the same bits
+(``test_paged_decode_is_bitwise_reproducible``), and a kernel whose
+combine leaves a request's last split out fails the check
+(``test_paged_decode_check_catches_a_dropped_split``).
+
 The causal forward is held at llama3_8b's prefill, a ragged prompt
 (S 1000), small ragged shapes and llama_moe's training microbatch (GQA
 16/4, S 2048); two calls give the same bits
@@ -191,15 +201,61 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: Paged decode outputs, relative L2 error beside ``TOL``: at long
+#: positions the outputs are small, so the max error alone does not see a
+#: dropped split. bf16 rounds the probabilities before P V and the output
+#: (2^-9 relative each, ~2e-3 together); fp32 sums in another order.
+PAGED_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+def _paged_close(got, ref, dtype) -> bool:
+    diff = got.float() - ref.float()
+    return bool(diff.abs().max() <= TOL[dtype]
+                and diff.norm() <= PAGED_L2[dtype] * ref.float().norm())
+
+
+def _engine_width(args, width, seed=0):
+    """The page table widened to ``width`` columns (the serving engine's
+    255), the columns past each request's pages holding other requests'
+    pages: in range, so the plain version's gather reads them, and never
+    attended to."""
+    rng = np.random.default_rng(seed)
+    table, lens = args[3], args[4]
+    pages = np.unique(table.numpy())
+    wide = np.zeros((table.shape[0], width), np.int32)
+    for b, n in enumerate(lens.tolist()):
+        k = pages_for_tokens(n + 1, 16)
+        wide[b, :k] = table[b, :k].numpy()
+        wide[b, k:] = rng.choice(pages[pages > 0], width - k)
+    return args[:3] + [torch.from_numpy(wide), lens]
+
+
+def _paged_cuda(lens, H, Hkv, D, num_pages, dtype, device, seed=0):
+    args = _paged_inputs(len(lens), H, Hkv, D, 16, num_pages, lens, seed)
+    args = [t.to(device) for t in args]
+    args[:3] = [t.to(dtype) for t in args[:3]]
+    return args
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("table", ["tight", "engine_width"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hkv,D", [(32, 8, 128), (8, 8, 64), (4, 1, 128)])
-def test_paged_decode_kernel_matches_plain(cuda_device, dtype, H, Hkv, D):
+@pytest.mark.parametrize("H,Hkv,D", [(32, 8, 128), (8, 8, 64), (4, 1, 128),
+                                     (64, 8, 128)])
+def test_paged_decode_kernel_matches_plain(cuda_device, dtype, H, Hkv, D,
+                                           table):
     # Page edges at 16: first slot, last slot, first of the next page, a
-    # long tail; the last row is a filler row on the scratch page.
+    # long tail, and at a tight table half and all of llama3_8b's context;
+    # the last row is a filler row on the scratch page. At the engine's
+    # width (255 columns) the columns past each request's pages hold other
+    # requests' pages.
     lens = [0, 15, 16, 17, 250, 1023, 0]
-    args = _paged_inputs(len(lens), H, Hkv, D, 16, 160, lens)
+    if table == "tight":
+        lens[-1:-1] = [4095, 8191]
+    args = _paged_inputs(len(lens), H, Hkv, D, 16, 900, lens)
     args[3][-1] = 0
+    if table == "engine_width":
+        args = _engine_width(args, 255)
     args = [t.to(cuda_device) for t in args]
     args[:3] = [t.to(dtype) for t in args[:3]]
     n = flash.paged_decode_attention.launches
@@ -209,6 +265,52 @@ def test_paged_decode_kernel_matches_plain(cuda_device, dtype, H, Hkv, D):
     assert got.dtype == dtype and got.shape == ref.shape
     torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
                                rtol=0)
+    assert _paged_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [[8191], [2047] * 8,
+                                  [0, 15, 16, 47, 300, 511, 767, 1023]],
+                         ids=["B1_long", "B8_long", "B8"])
+def test_paged_decode_is_bitwise_reproducible(cuda_device, lens):
+    """No float atomics: the splits of a request merge in split order, so
+    two bf16 calls give the same bits."""
+    args = _paged_cuda(lens, 32, 8, 128, 1100, torch.bfloat16, cuda_device)
+    assert torch.equal(flash.paged_decode_attention(*args),
+                       flash.paged_decode_attention(*args))
+
+
+#: The planted fault: the combine leaves the last split of each (request,
+#: KV head) out.
+_DROPPED_SPLIT = (
+    "  const int n_merge = n_live;\n",
+    "  const int n_merge = n_live - 1;  // planted fault: last split dropped\n")
+
+
+@pytest.mark.cuda
+def test_paged_decode_check_catches_a_dropped_split(cuda_device, tmp_path):
+    """At llama3_8b's full context (B=1, position 8191), bf16, the paged
+    decode check passes the kernel as built and fails a build whose combine
+    leaves each (request, KV head)'s last split out."""
+    with open(os.path.join(_build.CSRC_DIR, "paged_decode.cu")) as f:
+        source = f.read()
+    old, new = _DROPPED_SPLIT
+    assert source.count(old) == 1
+    src = tmp_path / "paged_decode_fault.cu"
+    src.write_text(source.replace(old, new))
+    lib = tmp_path / "libpaged_decode_fault.so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                           _build.CSRC_DIR, "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+    args = _paged_cuda([8191], 32, 8, 128, 600, torch.bfloat16, cuda_device)
+    ref = flash.paged_decode_attention(*args, impl="xla")
+    assert _paged_close(flash.paged_decode_attention(*args), ref,
+                        torch.bfloat16)
+    with _build.using("paged_decode", ctypes.CDLL(str(lib))):
+        assert not _paged_close(flash.paged_decode_attention(*args), ref,
+                                torch.bfloat16)
 
 
 @pytest.mark.cuda
