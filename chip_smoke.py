@@ -126,10 +126,15 @@ XU_OPS_PER_SM_CLOCK, XU_OPS_PER_PAIR = 16, 1.5
 # biased variance within BN_STATS_TOL of its root mean square and mean
 # square (fp32 sums of the same products in another order: ~1e-6 expected).
 BN_STATS_TOL = 1e-5
-# Its planted fault: the stats kernel leaves out row tile 1's partial.
+# Its planted fault: the merge leaves slot 1's partials out (one block's).
 DROPPED_PARTIAL = (
-    "  const int p0 = threadIdx.y;\n",
-    "  const int p0 = threadIdx.y + (threadIdx.y == 1 ? 32 : 0);\n")
+    "          const bool in = pp < n_slots && j < n_vals;\n",
+    "          const bool in = pp < n_slots && j < n_vals && pp != 1;\n")
+# The planted fault of the router check: the merge leaves block 1's
+# partial out of probs_mean.
+DROPPED_BLOCK = (
+    "        const bool in = b < nb;\n",
+    "        const bool in = b < nb && b != 1;  // planted fault\n")
 # The planted fault of the paged decode check: the combine leaves the last
 # split of each (request, KV head) out.
 DROPPED_SPLIT = (
@@ -692,10 +697,12 @@ def near_tie_rows(router, idx, ref_idx, logits) -> list:
     return rows
 
 
-def router_case(router, gen):
+def router_case(router, gen, fault_lib):
     """K5 against its plain version at the llama_moe shape: [8192, 8] fp32
     logits (the router is fp32 under every policy), k = 2, with exact ties
-    planted on every third row."""
+    planted on every third row; called twice for equal bits; the same
+    check must fail ``fault_lib``, a build whose merge leaves one block's
+    partial out of probs_mean."""
     T, E, k = MOE_TK // 2, MOE_E, 2
     logits = torch.randn(T, E, generator=gen, device="cuda") * 3
     logits[::3, E - 1] = logits[::3, 0]
@@ -713,11 +720,28 @@ def router_case(router, gen):
               ROUTER_TOL * max(1.0, float(r.abs().max())))
     if (got[1][::3, 0] == E - 1).any():
         raise AssertionError("fused_router: a tie went to the higher index")
+    if not all(torch.equal(a, b) for a, b in
+               zip(router.fused_router_fwd(logits, k), got)):
+        raise AssertionError("fused_router: two calls differ")
+    pm_tol = ROUTER_TOL * max(1.0, float(ref[3].abs().max()))
+    with planted("fused_router", fault_lib):
+        bad = max_err(router.fused_router_fwd(logits, k)[3], ref[3])
+        torch.cuda.synchronize()
+    if bad <= pm_tol:
+        raise AssertionError(f"the router check passed the planted fault: "
+                             f"probs_mean error {bad}")
     nbytes = 4 * (T * E + 2 * T * k + T + E)
     row = dict(name="fused_router float32", shape=dict(T=T, E=E, k=k),
                max_abs_err=max(errs), tol=ROUTER_TOL,
-               rows_that_differ=rows,
+               rows_that_differ=rows, reproducible=True,
+               planted_fault=dict(dropped="block 1's probs_mean partial",
+                                  probs_mean_max_abs_err=bad),
                ms=time_ms(lambda: router.fused_router_fwd(logits, k)),
+               ms_clean_l2=time_ms(lambda: router.fused_router_fwd(logits, k),
+                                   clean_l2=True),
+               # An empty kernel on the router's grid, in the same harness:
+               # the least any one launch reads here.
+               launch_floor_ms=time_ms(lambda: router.empty_launch(T, E)),
                plain_ms=time_ms(lambda: router.fused_router_plain(logits, k),
                                 iters=5),
                library_ms=None,
@@ -731,8 +755,10 @@ def bn_matmul_case(fbm, bn_bench, name, N, K, C, affine, relu, dtype, gen,
                    fault_lib=None):
     """K3 against its plain version at one shape: x [N, K], w [K, C], scale
     and bias [K] when ``affine``; with ``fault_lib``, the same check must
-    fail a build that leaves one row tile out of the statistics. With the
-    prologue whole, the bench's unfused arm is timed beside it."""
+    fail a build whose merge leaves one block's partial out of the
+    statistics. With the prologue whole, the bench's unfused arm is timed
+    beside it, and every row times cuBLAS alone on the prologue's output
+    (``matmul_ms``)."""
     dt = str(dtype)[6:]
     x = torch.randn(N, K, generator=gen, device="cuda").to(dtype)
     w = (torch.randn(K, C, generator=gen, device="cuda") / K ** 0.5).to(dtype)
@@ -774,17 +800,27 @@ def bn_matmul_case(fbm, bn_bench, name, N, K, C, affine, relu, dtype, gen,
         if passes(bad):
             raise AssertionError(f"the BN-stats check passed the planted "
                                  f"fault: {bad}")
-        fault = dict(dropped="row tile 1 of the stats partials", **bad)
+        fault = dict(dropped="slot 1's partial (one block's) in the merge",
+                     **bad)
     item = x.element_size()
     # x and w read once, scale and bias, y written once, the fp32 stats.
     nbytes = (N * K + K * C + N * C + (2 * K if affine else 0)) * item \
         + 4 * 2 * C
+    # cuBLAS alone on x already put through the prologue: the same bytes
+    # as K3 without the prologue and the statistics, a yardstick.
+    xn = x.float()
+    if affine:
+        xn = xn * aff[0].float() + aff[1].float()
+    xn = (torch.relu(xn) if relu else xn).to(dtype)
     row = dict(name=f"fused_bn_matmul {name} {dt}", shape=dict(
         N=N, K=K, C=C, affine=affine, relu=relu), **errs,
         tol=dict(y=dict(zip(("rtol", "c_rms", "rel_l2"), GMM_TOL[dt])),
                  moments=BN_STATS_TOL),
         planted_fault=fault,
         ms=time_ms(lambda: fbm.fused_stats_matmul(*args, relu=relu)),
+        ms_clean_l2=time_ms(lambda: fbm.fused_stats_matmul(*args, relu=relu),
+                            clean_l2=True),
+        matmul_ms=time_ms(lambda: torch.matmul(xn, w)),
         plain_ms=time_ms(lambda: fbm.fused_stats_matmul_plain(
             *args, relu=relu), iters=5),
         library_ms=None,
@@ -913,8 +949,9 @@ def main() -> int:
     # 2. Build every kernel from the checkout, one nvcc per source at once,
     # and beside them the planted-fault copies the checks must fail: of
     # grouped_matmul.cu (the gmm and dw checks), flash_fwd.cu (the kv_len
-    # check and the causal check), fused_bn_matmul.cu (the BN-stats check)
-    # and paged_decode.cu (the B=1 long paged decode check).
+    # check and the causal check), fused_bn_matmul.cu (the BN-stats check),
+    # fused_router.cu (the router's probs_mean check) and paged_decode.cu
+    # (the B=1 long paged decode check).
     fault_dir = os.path.join(_build.BUILD_DIR, "planted_fault")
     os.makedirs(fault_dir, exist_ok=True)
     faults = {"gmm_dw": ("grouped_matmul", DROPPED_ROWS),
@@ -922,6 +959,7 @@ def main() -> int:
               "kv_len": ("flash_fwd", IGNORED_KV_LEN),
               "diagonal": ("flash_fwd", UNMASKED_DIAGONAL),
               "bn": ("fused_bn_matmul", DROPPED_PARTIAL),
+              "router": ("fused_router", DROPPED_BLOCK),
               "split": ("paged_decode", DROPPED_SPLIT)}
     fault_libs, fault_procs = {}, []
     for key, (name, (old, new)) in faults.items():
@@ -945,14 +983,16 @@ def main() -> int:
             raise AssertionError(f"nvcc failed on a planted fault:\n"
                                  f"{fault_log}")
     # The wgmma kernels (the bf16 attention forward and backward, the
-    # grouped matmul and its dw) and the split paged decode kernels (bf16 at
-    # head_dim 64 and 128, ring depths 1-4) must not spill, nor serialise
-    # their wgmma (ptxas C7513). A library built earlier, by the kernel
-    # tests, reports no log: not checked then.
+    # grouped matmul and its dw, the BN-stats matmul at its three chunk
+    # widths) and the split paged decode kernels (bf16 at head_dim 64 and
+    # 128, ring depths 1-4) must not spill, nor serialise their wgmma
+    # (ptxas C7513). A library built earlier, by the kernel tests, reports
+    # no log: not checked then.
     spills = {}
     for name, n_kernels, marker in (("flash_fwd", 2, "wgmma"),
                                     ("flash_bwd", 4, "wgmma"),
                                     ("grouped_matmul", 3, "wgmma"),
+                                    ("fused_bn_matmul", 3, "wgmma"),
                                     ("paged_decode", 8, "paged_decode_mma")):
         spills[name] = kernel_spills(built["logs"][name], marker)
         serialised = [ln for ln in built["logs"][name].splitlines()
@@ -970,6 +1010,7 @@ def main() -> int:
          flash_fwd_wgmma_spill_bytes=spills["flash_fwd"] or None,
          flash_bwd_wgmma_spill_bytes=spills["flash_bwd"] or None,
          grouped_matmul_wgmma_spill_bytes=spills["grouped_matmul"] or None,
+         bn_matmul_wgmma_spill_bytes=spills["fused_bn_matmul"] or None,
          paged_decode_mma_spill_bytes=spills["paged_decode"] or None)
 
     # 3. Each kernel against its plain version at the serving shapes.
@@ -1066,7 +1107,7 @@ def main() -> int:
             emit("kernel_check", kernel="gmm_dw", **row)
         gc.collect()
         torch.cuda.empty_cache()
-    row = router_case(router, gen)
+    row = router_case(router, gen, fault_libs["router"])
     rows[row["name"]] = row
     emit("kernel_check", kernel="fused_router", **row)
 
@@ -1091,14 +1132,17 @@ def main() -> int:
     # The fused BN-stats matmul (K3) at the bench's three ResNet-50 1x1-conv
     # shapes (batch 128, scale, bias and ReLU) and ragged ones: rows no
     # multiple of a tile without a prologue, rows and columns ragged with an
-    # affine prologue and no ReLU; bf16 at the first shape also fails the
-    # planted fault.
+    # affine prologue and no ReLU, and in bf16 ragged rows with more than
+    # 256 columns (several column chunks); bf16 at the first shape also
+    # fails the planted fault.
     for dtype in (torch.bfloat16, torch.float32):
+        wide = (("wide", 5003, 512, 1024, True, True),) \
+            if dtype == torch.bfloat16 else ()
         for case in (("stage2_reduce", 401408, 256, 64, True, True),
                      ("stage2_expand", 401408, 64, 256, True, True),
                      ("stage3_reduce", 100352, 512, 128, True, True),
                      ("ragged_rows", 12345, 256, 64, False, False),
-                     ("ragged_affine", 3001, 64, 200, True, False)):
+                     ("ragged_affine", 3001, 64, 200, True, False)) + wide:
             row = bn_matmul_case(
                 fbm, bn_bench, *case, dtype, gen,
                 fault_libs["bn"] if (case[0] == "stage2_reduce"
@@ -1650,11 +1694,14 @@ def main() -> int:
     bench_launches = {k: fn.launches for k, fn in counters.items()}
     path_launches["bench_fused_bn"] = bench_launches
     bench_rows = bench_out["rows"]
-    # The unfused arm rounds y (and its prologue) to bf16 before its stats;
-    # K3 takes them from the fp32 product: a few bf16 ulps apart.
+    # The unfused and ResNet arms round y (and the unfused arm its
+    # prologue) to bf16 before their stats; K3 takes them from the fp32
+    # product: a few bf16 ulps apart.
     if rc != 0 or len(bench_rows) != len(bn_bench.SHAPES) or any(
             not (r["fused_ms"] > 0 and r["unfused_ms"] > 0
-                 and r["mean_gap"] < 1e-2 and r["var_gap"] < 1e-2)
+                 and r["resnet_segment_ms"] > 0
+                 and max(r["mean_gap"], r["var_gap"], r["resnet_mean_gap"],
+                         r["resnet_var_gap"]) < 1e-2)
             for r in bench_rows):
         raise AssertionError(f"the fused BN bench failed: {bench_out}")
     if bench_launches["fused_bn_matmul"] <= 0 or any(
@@ -1911,6 +1958,7 @@ def main() -> int:
                        design="wgmma + TMA ring", replaces=f"{gmm_py}:162"),
         "fused_router": dict(
             route="cuda", source=f"{PKG}/csrc/fused_router.cu",
+            design="one launch, last-arriver ordered merge",
             replaces="pytorch_distributed_training_example_tpu/ops/"
                      "fused_router.py:54"),
         "flash_fwd_kv_len": dict(route="cuda",
@@ -1920,6 +1968,7 @@ def main() -> int:
                                  also_replaces=[f"{flash_py}:512"]),
         "fused_bn_matmul": dict(
             route="cuda", source=f"{PKG}/csrc/fused_bn_matmul.cu",
+            design="persistent wgmma + TMA ring, last-arriver ordered merge",
             replaces="pytorch_distributed_training_example_tpu/ops/"
                      "fused_bn_matmul.py:49"),
     }

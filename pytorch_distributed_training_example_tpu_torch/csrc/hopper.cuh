@@ -209,6 +209,45 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One TMA box of shared memory at src (laid out as tma_load_2d lands it)
+// into a 2-D map (encode_bf16_map) at columns c0.., rows c1..: rows and
+// columns past the map's edge are not written. Make the box's writes
+// visible first (fence_proxy_async, then a barrier); the store joins the
+// issuing thread's open bulk group (bulk_commit closes it).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of the thread's committed bulk groups still read
+// their shared memory (it may then be written again; the global writes
+// complete by the end of the grid).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Counts this block's arrival at *counter, one of n, with one
+// acquire-release increment that wraps the counter back to 0 at the n-th:
+// true in the block that arrives last, which may then read what the
+// others wrote before they arrived. One thread calls it, after a barrier
+// that orders the block's writes before it.
+__device__ __forceinline__ bool arrive_last(unsigned* counter, unsigned n) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(counter), "r"(n - 1)
+               : "memory");
+  return old == n - 1;
+}
+
 // Makes this thread's generic-proxy writes to shared memory visible to the
 // async proxy (wgmma, TMA); follow with a barrier before the async reads.
 __device__ __forceinline__ void fence_proxy_async() {

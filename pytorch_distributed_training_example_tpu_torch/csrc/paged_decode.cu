@@ -639,14 +639,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_mma_kernel(
   // writes before it); the increment wraps the counter of the last block of
   // the (request, KV head) back to 0 for the next call.
   __syncthreads();
-  if (tid == 0) {
-    unsigned old;
-    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;\n"
-                 : "=r"(old)
-                 : "l"(a.counters + (size_t)b * a.Hkv + kvh), "r"(n_live - 1)
-                 : "memory");
-    is_last = old == (unsigned)(n_live - 1);
-  }
+  if (tid == 0)
+    is_last = pdtx::arrive_last(a.counters + (size_t)b * a.Hkv + kvh, n_live);
   __syncthreads();
   if (!is_last) return;
 

@@ -380,18 +380,24 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-#: Per (device, stream), the split kernel's int32 arrival counters, one a
-#: (request, KV head). Zeroed once; the kernel's last block of a (request,
-#: KV head) resets its counter, so they are zero between calls.
-_decode_counters: dict = {}
+#: Per (kernel, device, stream), the int32 arrival counters of the kernels
+#: whose last block to arrive merges the others' partials (the split paged
+#: decode kernel: one a (request, KV head); the fused BN-stats matmul and
+#: the fused router: one a launch). Zeroed once; the last block of each
+#: merge resets its counter, so they are zero between calls.
+_counters: dict = {}
 
 
-def _paged_decode_counters(device: torch.device, n: int) -> torch.Tensor:
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    counters = _decode_counters.get(key)
+def arrival_counters(kernel: str, device: torch.device,
+                     n: int) -> torch.Tensor:
+    """At least ``n`` zeroed arrival counters of ``kernel`` on the current
+    stream of ``device``."""
+    key = (kernel, device.index,
+           torch.cuda.current_stream(device).cuda_stream)
+    counters = _counters.get(key)
     if counters is None or counters.numel() < n:
         counters = torch.zeros(n, dtype=torch.int32, device=device)
-        _decode_counters[key] = counters
+        _counters[key] = counters
     return counters
 
 
@@ -432,7 +438,7 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, positions):
                                            _sm_count(q.device.index))
     workspace = torch.empty(B * Hkv * n_splits * (H // Hkv * D + 32),
                             dtype=torch.float32, device=q.device)
-    counters = _paged_decode_counters(q.device, B * Hkv)
+    counters = arrival_counters("paged_decode", q.device, B * Hkv)
     with torch.cuda.device(q.device):
         err = _paged_decode_fn()(
             _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_table),

@@ -35,14 +35,56 @@ does: its entry point is the bench (``bench/fused_bn_bench.py``).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from pytorch_distributed_training_example_tpu_torch.ops import _build
 from pytorch_distributed_training_example_tpu_torch.ops.flash_attention import (
-    _KERNEL_DTYPES, _check_cuda_args, _ptr, _stream)
+    _KERNEL_DTYPES, _check_cuda_args, _ptr, _sm_count, _stream,
+    arrival_counters)
 
 _AFFINE, _RELU = 1, 2  # the kernel's flags
+#: Persistent blocks an SM: the bf16 kernel takes a whole SM, five fp32
+#: blocks share one.
+_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 5}
+
+
+class Schedule(NamedTuple):
+    """The kernel's persistent schedule (``_bn_schedule``)."""
+    chunk: int            # columns of y a block takes
+    tile_rows: int        # rows of a tile
+    n_chunks: int         # ceil(C / chunk)
+    n_tiles: int          # ceil(N / tile_rows)
+    slots: int            # blocks a chunk; the partials of a column
+    grid: int             # slots * n_chunks
+    tiles_per_block: int  # the most tiles a block walks
+    workspace: int        # fp32 partials: slots * 2 * C
+    counters: int         # arrival counters: one
+
+
+def _bn_schedule(N: int, C: int, dtype: torch.dtype,
+                 sm_count: int) -> Schedule:
+    """Grid, tiles, workspace and counters of ``csrc/fused_bn_matmul.cu``
+    for x ``[N, K]`` @ w ``[K, C]``, from sizes the host knows. The columns
+    are cut into chunks (bf16: one chunk of 64 or 128 columns in 128-row
+    tiles up to C = 128, chunks of 256 in 64-row tiles above; fp32: chunks
+    of 64 in 64-row tiles); each chunk gets ``slots`` persistent blocks,
+    no more than its tiles, and block b takes chunk ``b % n_chunks`` and
+    its tiles ``b // n_chunks + i * slots``. Each block writes one
+    ``[2, chunk]`` partial into row ``b // n_chunks`` of the ``[slots, 2,
+    C]`` workspace; the last block to arrive sums each column's ``slots``
+    partials in slot order."""
+    if dtype == torch.bfloat16:
+        chunk = 64 if C <= 64 else 128 if C <= 128 else 256
+        tile_rows = 64 if chunk == 256 else 128
+    else:
+        chunk, tile_rows = 64, 64
+    n_chunks = -(-C // chunk)
+    n_tiles = -(-N // tile_rows)
+    slots = max(1, min(n_tiles, _BLOCKS_PER_SM[dtype] * sm_count // n_chunks))
+    return Schedule(chunk, tile_rows, n_chunks, n_tiles, slots,
+                    slots * n_chunks, -(-n_tiles // slots), slots * 2 * C, 1)
 
 
 def _check_args(x, w, scale, bias) -> None:
@@ -91,15 +133,11 @@ def fused_stats_matmul_plain(x, w, scale=None, bias=None, *,
 
 @_build.cached("fused_bn_matmul")
 def _kernel_fn():
-    lib = _build.library("fused_bn_matmul")
-    fn = lib.pdtx_bn_matmul
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    fn = _build.library("fused_bn_matmul").pdtx_bn_matmul
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    tile = lib.pdtx_bn_matmul_row_tile
-    tile.argtypes = [ctypes.c_int]
-    tile.restype = ctypes.c_int
-    return fn, tile
+    return fn
 
 
 def _fused_cuda(x, w, scale, bias, relu):
@@ -113,23 +151,21 @@ def _fused_cuda(x, w, scale, bias, relu):
         raise ValueError(f"fused_stats_matmul: bf16 x and w need 16-byte "
                          f"aligned rows (K and C multiples of 8), got "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
-    if s is not None and (s.data_ptr() % 8 or b.data_ptr() % 8):
-        raise ValueError("fused_stats_matmul: the kernel reads scale and "
-                         "bias in pairs; fp32 scale and bias need 8-byte "
-                         "aligned storage")
     flags = (_AFFINE if s is not None else 0) | (_RELU if relu else 0)
-    fn, tile = _kernel_fn()
-    dtype = _KERNEL_DTYPES[x.dtype]
-    rows = tile(dtype)
+    plan = _bn_schedule(N, C, x.dtype, _sm_count(x.device.index))
     y = torch.empty((N, C), dtype=x.dtype, device=x.device)
-    partial = torch.empty((-(-N // rows), 2, C), dtype=torch.float32,
+    partial = torch.empty(plan.workspace, dtype=torch.float32,
                           device=x.device)
     stats = torch.empty((2, C), dtype=torch.float32, device=x.device)
+    counter = arrival_counters("fused_bn_matmul", x.device, plan.counters)
     null = ctypes.c_void_p(None)
     with torch.cuda.device(x.device):
-        err = fn(_ptr(x), _ptr(w), null if s is None else _ptr(s),
-                 null if b is None else _ptr(b), _ptr(y), _ptr(partial),
-                 _ptr(stats), N, K, C, flags, dtype, _stream(x.device))
+        err = _kernel_fn()(
+            _ptr(x), _ptr(w), null if s is None else _ptr(s),
+            null if b is None else _ptr(b), _ptr(y), _ptr(partial),
+            _ptr(stats), _ptr(counter), N, K, C, flags,
+            _KERNEL_DTYPES[x.dtype], plan.chunk, plan.slots,
+            _stream(x.device))
     _build.check(err, "fused_stats_matmul")
     fused_stats_matmul.launches += 1
     return y, stats

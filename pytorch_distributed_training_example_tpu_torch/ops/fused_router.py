@@ -31,10 +31,28 @@ import torch
 
 from pytorch_distributed_training_example_tpu_torch.ops import _build
 from pytorch_distributed_training_example_tpu_torch.ops.flash_attention import (
-    _check_cuda_args, _ptr, _stream)
+    _check_cuda_args, _ptr, _stream, arrival_counters)
 
 #: Widest router the kernel takes (one row's probabilities in registers).
 MAX_EXPERTS = 64
+#: Threads of one of the kernel's blocks.
+BLOCK_THREADS = 256
+
+
+def _router_schedule(T: int, E: int) -> tuple[int, int, int, int]:
+    """``(blocks, rows_per_block, merge_parts, workspace)`` of
+    ``csrc/fused_router.cu`` for ``T`` rows of ``E`` logits. A row is
+    spread over G lanes (E's bound of 8, 16 or 32, at most 32), so a block
+    of ``BLOCK_THREADS`` takes ``BLOCK_THREADS // G`` rows and writes one
+    ``[E]`` partial of the probabilities' sums into the ``[blocks, E]``
+    workspace; the last block to arrive sums expert e's partials as
+    ``merge_parts`` = ``BLOCK_THREADS // E`` parts (part q: blocks q, q +
+    parts, ... in order), then the parts in order. One arrival counter a
+    call."""
+    lanes = 8 if E <= 8 else 16 if E <= 16 else 32
+    rows = BLOCK_THREADS // lanes
+    blocks = -(-T // rows)
+    return blocks, rows, BLOCK_THREADS // E, blocks * E
 
 
 def top_k_first(probs: torch.Tensor, top_k: int):
@@ -76,7 +94,7 @@ def fused_router_plain(logits: torch.Tensor, top_k: int):
 @_build.cached("fused_router")
 def _router_fn():
     fn = _build.library("fused_router").pdtx_fused_router
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -87,23 +105,42 @@ def _fused_router_cuda(logits: torch.Tensor, top_k: int):
     if not 0 < E <= MAX_EXPERTS:
         raise ValueError(f"fused router kernel takes 1..{MAX_EXPERTS} "
                          f"experts, got {E}")
+    if T < 1:
+        raise ValueError("fused router kernel takes at least one row")
     _check_cuda_args("fused_router", dict(logits=logits), torch.float32)
     dev = logits.device
     gates = torch.empty((T, top_k), dtype=torch.float32, device=dev)
     idx = torch.empty((T, top_k), dtype=torch.int32, device=dev)
     lse = torch.empty((T,), dtype=torch.float32, device=dev)
     probs_mean = torch.empty((E,), dtype=torch.float32, device=dev)
-    # Per-block partial sums of the probabilities, summed in block order by
-    # the kernel's second pass (no float atomics: reproducible).
-    partial = torch.empty((max(-(-T // 128), 1), E), dtype=torch.float32,
+    # Per-block partial sums of the probabilities, which the last block to
+    # arrive sums in a fixed order (no float atomics: reproducible).
+    partial = torch.empty(_router_schedule(T, E)[3], dtype=torch.float32,
                           device=dev)
+    counter = arrival_counters("fused_router", dev, 1)
     with torch.cuda.device(dev):
         err = _router_fn()(
             _ptr(logits), _ptr(gates), _ptr(idx), _ptr(lse), _ptr(probs_mean),
-            _ptr(partial), T, E, top_k, _stream(dev))
+            _ptr(partial), _ptr(counter), T, E, top_k, _stream(dev))
     _build.check(err, "fused_router")
     fused_router_fwd.launches += 1
     return gates, idx, lse, probs_mean
+
+
+@_build.cached("fused_router")
+def _empty_fn():
+    fn = _build.library("fused_router").pdtx_router_empty
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def empty_launch(T: int, E: int) -> None:
+    """Launch an empty kernel on the router kernel's grid for ``T`` rows of
+    ``E`` logits, on the current CUDA stream: the floor any launch reads in
+    a timing harness. Counts no launch."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    _build.check(_empty_fn()(T, E, _stream(device)), "empty_launch")
 
 
 def fused_router_fwd(logits: torch.Tensor, top_k: int):

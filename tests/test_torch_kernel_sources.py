@@ -53,6 +53,8 @@ PLANTED_FAULTS = [
     ("kernel_tests", "_DROPPED_SLICE", "grouped_matmul"),
     ("kernel_tests", "_DROPPED_PARTIAL", "fused_bn_matmul"),
     ("kernel_tests", "_DROPPED_SPLIT", "paged_decode"),
+    ("chip_smoke", "DROPPED_BLOCK", "fused_router"),
+    ("kernel_tests", "_DROPPED_BLOCK", "fused_router"),
 ]
 
 
@@ -85,7 +87,8 @@ def test_every_planted_fault_is_listed():
                 assert (where, attr) in listed, (where, attr)
     for attr in ("IGNORED_KV_LEN", "UNMASKED_DIAGONAL"):
         assert getattr(SMOKE, attr) == getattr(KERNEL_TESTS, attr)
-    for attr in ("DROPPED_ROWS", "DROPPED_SLICE", "DROPPED_SPLIT"):
+    for attr in ("DROPPED_ROWS", "DROPPED_SLICE", "DROPPED_SPLIT",
+                 "DROPPED_PARTIAL", "DROPPED_BLOCK"):
         assert getattr(SMOKE, attr) == getattr(KERNEL_TESTS, "_" + attr)
 
 

@@ -64,16 +64,21 @@ tile, and edge routings (one expert holding every row, segments of 1-7
 rows, 37 rows, one expert, dw's split of a heavy expert) match. The fused router's expert choices
 equal the plain version's except on rows that are near ties (the plain
 version's two probabilities at the first differing rank within 4 ulp), its
-gates, logsumexp and mean probabilities within 1e-6.
+gates, logsumexp and mean probabilities within 1e-6, at T 1, 129 and 8192
+and E up to 64; two calls give the same bits, and a kernel whose merge
+leaves one block's partial out fails the check
+(``test_fused_router_check_catches_a_dropped_block``).
 
 The fused BN-stats matmul (K3), at the bench's three ResNet-50 shapes and
 ragged ones (rows and columns no multiple of a tile, fewer rows than a
-tile, with and without the affine prologue and ReLU): y in ``GMM_TOL``'s
-form, the mean and the biased variance of each column within 1e-5 of its
-root mean square and mean square (``BN_STATS_TOL``: fp32 sums of the same
-products in another order), the statistics bitwise the same on a second
-call. A kernel that leaves one row tile's partial out of the statistics
-fails the check (``test_fused_bn_matmul_check_catches_a_dropped_partial``).
+tile, more than 256 columns, with and without the affine prologue and
+ReLU): y in ``GMM_TOL``'s form, the mean and the biased variance of each
+column within 1e-5 of its root mean square and mean square
+(``BN_STATS_TOL``: fp32 sums of the same products in another order), y
+and the statistics bitwise the same on a second call. A kernel whose
+merge leaves one block's partial out of the statistics fails the check
+(``test_fused_bn_matmul_check_catches_a_dropped_partial``). The router and
+the BN-stats matmul are one kernel a call, counted under torch.profiler.
 """
 
 import ctypes
@@ -1002,7 +1007,8 @@ def _near_tie_rows(idx, ref_idx, logits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,E,k", [(8192, 8, 2), (1000, 6, 3), (129, 64, 2)])
+@pytest.mark.parametrize("T,E,k", [(8192, 8, 2), (1000, 6, 3), (129, 64, 2),
+                                   (1, 8, 2), (129, 8, 1), (1, 64, 64)])
 def test_fused_router_kernel_matches_plain(cuda_device, T, E, k):
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     logits = torch.randn(T, E, generator=gen, device=cuda_device) * 3
@@ -1020,7 +1026,88 @@ def test_fused_router_kernel_matches_plain(cuda_device, T, E, k):
                                atol=1e-6)
     torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(got[3], ref[3], rtol=1e-6, atol=1e-6)
-    assert (got[1][::3, 0] != E - 1).all()
+    if E > 1 and k < E:
+        assert (got[1][::3, 0] != E - 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E", [(8192, 8), (129, 64)])
+def test_fused_router_is_bitwise_reproducible(cuda_device, T, E):
+    """One launch a call, its probs_mean merged in a fixed order in the
+    block that arrives last: two calls give the same bits."""
+    logits = torch.randn(T, E, device=cuda_device) * 3
+    for a, b in zip(router.fused_router_fwd(logits, 2),
+                    router.fused_router_fwd(logits, 2)):
+        assert torch.equal(a, b)
+
+
+def _kernels_a_call(fn) -> list:
+    """The device kernels one call of ``fn`` launches, by name, under
+    torch.profiler (after a warm-up call that builds and loads)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memset" not in e.name.lower()
+            and "memcpy" not in e.name.lower()]
+
+
+@pytest.mark.cuda
+def test_fused_router_and_bn_matmul_launch_one_kernel(cuda_device):
+    """The router and the BN-stats matmul are one kernel a call each: the
+    merge runs in the same launch (the outputs and the workspace are
+    ``torch.empty``, so nothing else runs on the card)."""
+    logits = torch.randn(8192, 8, device=cuda_device)
+    names = _kernels_a_call(lambda: router.fused_router_fwd(logits, 2))
+    assert len(names) == 1 and "router_kernel" in names[0], names
+    x, w, scale, bias = _bn_inputs(12345, 256, 64, True, torch.bfloat16,
+                                   cuda_device)
+    args = (x, w, scale.float(), bias.float())  # no cast to fp32 a call
+    names = _kernels_a_call(lambda: fbm.fused_stats_matmul(*args))
+    assert len(names) == 1 and "bn_matmul_wgmma" in names[0], names
+    args = _bn_inputs(5003, 512, 1024, True, torch.float32, cuda_device)
+    names = _kernels_a_call(lambda: fbm.fused_stats_matmul(*args))
+    assert len(names) == 1 and "bn_matmul_simt" in names[0], names
+
+
+#: The planted fault: the router's merge leaves block 1's partial out.
+_DROPPED_BLOCK = (
+    "        const bool in = b < nb;\n",
+    "        const bool in = b < nb && b != 1;  // planted fault\n")
+
+
+@pytest.mark.cuda
+def test_fused_router_check_catches_a_dropped_block(cuda_device, tmp_path):
+    """At the llama_moe shape (T 8192, 256 blocks), the probs_mean check
+    passes the kernel as built and fails a build whose merge leaves one
+    block's partial out (1/256 of each mean)."""
+    with open(os.path.join(_build.CSRC_DIR, "fused_router.cu")) as f:
+        source = f.read()
+    old, new = _DROPPED_BLOCK
+    assert source.count(old) == 1
+    src = tmp_path / "fused_router_fault.cu"
+    src.write_text(source.replace(old, new))
+    lib = tmp_path / "libfused_router_fault.so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                           _build.CSRC_DIR, "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+    logits = torch.randn(8192, 8, device=cuda_device) * 3
+    ref = router.fused_router_plain(logits, 2)[3]
+
+    def close(pm):
+        return bool(torch.allclose(pm, ref, rtol=1e-6, atol=1e-6))
+
+    assert close(router.fused_router_fwd(logits, 2)[3])
+    with _build.using("fused_router", ctypes.CDLL(str(lib))):
+        got = router.fused_router_fwd(logits, 2)[3]
+    assert not close(got)
 
 
 @pytest.mark.cuda
@@ -1081,7 +1168,8 @@ def _bn_close(got, ref, dtype) -> bool:
     (100352, 512, 128, True, True),  # stage-3 reduce
     (12345, 256, 64, False, False),  # ragged rows, no prologue
     (3001, 64, 200, True, False),    # ragged rows and columns, no ReLU
-    (77, 8, 8, False, True)])        # fewer rows than a tile
+    (77, 8, 8, False, True),         # fewer rows than a tile
+    (5003, 512, 1024, True, True)])  # four column chunks, w streamed
 def test_fused_bn_matmul_kernel_matches_plain(cuda_device, dtype, N, K, C,
                                               affine, relu):
     args = _bn_inputs(N, K, C, affine, dtype, cuda_device)
@@ -1092,21 +1180,22 @@ def test_fused_bn_matmul_kernel_matches_plain(cuda_device, dtype, N, K, C,
     assert got[0].dtype == dtype and got[0].shape == (N, C)
     assert got[1].dtype == torch.float32 and got[1].shape == (2, C)
     assert _bn_close(got, ref, dtype)
-    assert torch.equal(fbm.fused_stats_matmul(*args, relu=relu)[1], got[1])
+    again = fbm.fused_stats_matmul(*args, relu=relu)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[0], got[0])
 
 
-#: The planted fault: the stats kernel leaves out row tile 1's partial.
+#: The planted fault: the merge leaves slot 1's partials out.
 _DROPPED_PARTIAL = (
-    "  const int p0 = threadIdx.y;\n",
-    "  const int p0 = threadIdx.y + (threadIdx.y == 1 ? 32 : 0);\n")
+    "          const bool in = pp < n_slots && j < n_vals;\n",
+    "          const bool in = pp < n_slots && j < n_vals && pp != 1;\n")
 
 
 @pytest.mark.cuda
 def test_fused_bn_matmul_check_catches_a_dropped_partial(cuda_device,
                                                          tmp_path):
-    """The check fails a kernel that leaves one 128-row tile out of the
-    statistics, at the bench's first shape (one tile of 3136), where it
-    passes the kernel as built."""
+    """The check fails a kernel whose merge leaves one block's partial
+    out of the statistics, at the bench's first shape (one of 132), where
+    it passes the kernel as built."""
     with open(os.path.join(_build.CSRC_DIR, "fused_bn_matmul.cu")) as f:
         source = f.read()
     old, new = _DROPPED_PARTIAL
@@ -1139,6 +1228,10 @@ def test_fused_bn_matmul_rejects_bad_args(cuda_device):
         fbm.fused_stats_matmul(x, w, scale.cpu(), bias.cpu())
     with pytest.raises(TypeError, match="one dtype"):
         fbm.fused_stats_matmul(x, w.float())
+    # Scale and bias at any fp32 offset: the kernel stages them one value
+    # a thread, so storage that is not 8-byte aligned is taken.
     params = torch.randn(2 * 24 + 1, device=cuda_device)
-    with pytest.raises(ValueError, match="8-byte"):
-        fbm.fused_stats_matmul(x, w, params[1:25], params[25:])
+    assert _bn_close(fbm.fused_stats_matmul(x, w, params[1:25], params[25:]),
+                     fbm.fused_stats_matmul_plain(x, w, params[1:25],
+                                                  params[25:]),
+                     torch.bfloat16)
